@@ -1,0 +1,83 @@
+"""JAX → PyTorch weights for HoloGAN.
+
+Turns the JAX package's flax variable trees ({"params": ..., "spectral":
+...}, leaves as numpy arrays — ``jax.device_get`` gives that) into the port's
+``state_dict``s, so both frameworks can run from the same weights. This
+module needs numpy only; it never imports JAX.
+
+Layout rules, each pinned by tests/test_torch_convert.py:
+  * Dense (in, out) → Linear weight (out, in).
+  * Conv HWIO → OIHW.
+  * ConvTranspose (k..., in, out) → (in, out, k...) with the kernel flipped
+    on every spatial axis: flax's transposed conv does not flip, torch's
+    does. The padding that matches flax "SAME" is set by the modules
+    (models/hologan.py: 3D k3 s2 crops the last plane; 2D k4 s2 pads 1).
+  * The generator's constant volume NDHWC → NCDHW.
+  * Spectral-norm ``u`` carries across from the "spectral" collection.
+  * The discriminator flattens in NHWC order in both frameworks, so its
+    Dense rows need no permutation.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32, order="C", copy=True))
+
+
+def _dense(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _conv(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _conv_transpose(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    k = np.asarray(p["kernel"])
+    nsp = k.ndim - 2
+    k = k[(slice(None, None, -1),) * nsp]
+    k = k.transpose(nsp, nsp + 1, *range(nsp))
+    return {f"{prefix}.weight": _t(k), f"{prefix}.bias": _t(p["bias"])}
+
+
+def generator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax HoloGAN Generator variables → models.hologan.Generator
+    state_dict."""
+    p = variables["params"]
+    sd = {"const": _t(np.asarray(p["const"]).transpose(0, 4, 1, 2, 3))}
+    sd.update(_dense(p["ZMapping_0"]["Dense_0"], "zmap.dense"))
+    for i in range(2):
+        blk = p[f"GenBlock3D_{i}"]
+        sd.update(_conv_transpose(blk["ConvTranspose_0"], f"block3d_{i}.convt"))
+        sd.update(_dense(blk["ZMapping_0"]["Dense_0"], f"block3d_{i}.zmap.dense"))
+        blk = p[f"GenBlock2D_{i}"]
+        sd.update(_conv_transpose(blk["ConvTranspose_0"], f"block2d_{i}.convt"))
+        sd.update(_dense(blk["ZMapping_0"]["Dense_0"], f"block2d_{i}.zmap.dense"))
+    sd.update(_conv(p["Conv_0"], "proj_conv"))
+    if "Conv_1" in p:                       # 64 px head
+        sd.update(_conv(p["Conv_1"], "out_conv"))
+    else:                                   # 128 px head
+        sd.update(_conv_transpose(p["ConvTranspose_0"], "out_conv"))
+    return sd
+
+
+def discriminator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax HoloGAN Discriminator variables (params + spectral) →
+    models.hologan.Discriminator state_dict."""
+    p, spectral = variables["params"], variables["spectral"]
+    sd = _conv(p["Conv_0"], "conv0")
+    for i in range(3):
+        name = f"DiscBlock_{i}"
+        sd.update(_conv(p[name]["SpectralNormConv_0"], f"block_{i}.conv"))
+        sd[f"block_{i}.conv.u"] = _t(spectral[name]["SpectralNormConv_0"]["u"])
+    sd.update(_dense(p["Dense_0"], "dense_logit"))
+    sd.update(_dense(p["Dense_1"], "dense_enc"))
+    sd.update(_dense(p["Dense_2"], "dense_z"))
+    return sd

@@ -1,0 +1,183 @@
+"""The training loop (counterpart of lightning_gan_zoo_tpu/runtime/loop.py),
+for one device.
+
+Builds the task on the device it is given, streams shuffled epochs of
+stacked superstep batches from the EpochLoader, runs the superstep, logs the
+epoch means and ``perf/images_per_sec``, and at each validation writes the
+Real grid and the Fake grid generated from fixed noise.
+
+Features of the JAX Trainer that are not ported yet (FID/KID, figures,
+checkpoints and resume, eval_only, folding, EMA, multi-device axes,
+profiling, annealing schedules) raise NotImplementedError when switched on;
+none is skipped quietly.
+"""
+from __future__ import annotations
+
+import os
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..config.node import Config
+from ..config.registry import instantiate
+from ..data.pipeline import EpochLoader
+from ..figures.image_io import make_grid, unnormalise
+from ..utils.logging import ExperimentLogger
+from .state import create_train_state
+from .steps import microbatch_count, superstep
+
+
+def unported_features(cfg: Config) -> List[str]:
+    """The switched-on config features this package cannot run yet."""
+    found = []
+    if cfg.get("calc_fid", False) and cfg.val.get("use_fid", True):
+        found.append("calc_fid=True (FID/KID; pass calc_fid=False)")
+    if cfg.get("save_ckpts", True):
+        found.append("save_ckpts=True (checkpoints; pass save_ckpts=False)")
+    if cfg.get("figures"):
+        found.append("figure callbacks (pass '~figures')")
+    if cfg.get("eval_only", False):
+        found.append("eval_only=true")
+    if cfg.train.get("ckpt_dir"):
+        found.append("train.ckpt_dir (resume)")
+    if int(cfg.train.get("fold_steps") or 1) > 1:
+        found.append("train.fold_steps > 1")
+    if float(cfg.train.get("ema_decay") or 0.0) > 0.0:
+        found.append("train.ema_decay > 0 (G weight EMA)")
+    for key in ("num_gpus", "num_sp", "num_tp"):
+        if int(cfg.get(key, 1) or 1) > 1:
+            found.append(f"{key} > 1 (multi-device)")
+    for key in ("zero_opt", "fsdp", "profile", "use_resolution_annealing"):
+        if cfg.get(key, False):
+            found.append(f"{key}=true")
+    if "variable_batch_size" in cfg:
+        found.append("variable_batch_size")
+    if not isinstance(cfg.get("accumulate_grad_batches", 1), (int, float)):
+        found.append("epoch-scheduled accumulate_grad_batches")
+    for key in ("fast_dev_run", "verbose_shape"):
+        if cfg.debug.get(key, False):
+            found.append(f"debug.{key}=true")
+    return found
+
+
+def _resolve_version(cfg: Config, output_root: Path) -> str:
+    """cfg.version, a cluster job id, else the next free version_N."""
+    v = cfg.get("version")
+    if v is not None:
+        return str(v)
+    for env in ("SLURM_JOB_ID", "SUBMITIT_JOB_ID"):
+        if os.environ.get(env):
+            return os.environ[env]
+    base = output_root / cfg.name
+    existing = [int(p.name.split("_")[-1]) for p in base.glob("version_*")
+                if p.name.split("_")[-1].isdigit()] if base.is_dir() else []
+    return f"version_{max(existing) + 1 if existing else 0}"
+
+
+def _dataset_kwargs(cfg: Config) -> dict:
+    return dict(img_size=int(cfg.train.img_size),
+                n_channels=int(cfg.train.channels_img),
+                data_mean=float(cfg.train.data_mean),
+                data_std=float(cfg.train.data_std))
+
+
+class Trainer:
+    def __init__(self, cfg: Config, device):
+        unported = unported_features(cfg)
+        if unported:
+            raise NotImplementedError(
+                "not yet ported to lightning_gan_zoo_tpu_torch: "
+                + "; ".join(unported))
+        self.device = torch.device(device)
+        # Explicit, since cuDNN defaults to TF32 for float32 convolutions.
+        # Under precision 16 the convolutions and matmuls run in bf16
+        # through autocast; what stays float32 (view geometry, the spectral
+        # norm's power iteration) is meant to be full float32.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+        self.cfg = cfg
+        self.seed = int(cfg.get("seed", 42))
+        out_root = Path(cfg.get("output_root", "output"))
+        self.version = _resolve_version(cfg, out_root)
+        self.logging_dir = out_root / cfg.name / self.version
+        self.logger = ExperimentLogger(self.logging_dir)
+        self.task = instantiate(cfg.model.lm, cfg, str(self.logging_dir),
+                                device=self.device)
+        self.disc_freq = int(cfg.optimisation.disc_freq)
+        self.gen_freq = int(cfg.optimisation.gen_freq)
+        self.accum = max(int(cfg.get("accumulate_grad_batches", 1)), 1)
+        self.batch_size = int(cfg.train.batch_size)
+        self.epoch = 0
+        self._fixed_noise = self.task.sample_z(
+            8, generator=self._generator(7))
+        self.state = None
+
+    def _generator(self, offset: int) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(self.seed + offset)
+
+    def _make_train_loader(self) -> EpochLoader:
+        ds = instantiate(self.cfg.dataset.train, **_dataset_kwargs(self.cfg))
+        return EpochLoader(ds, self.batch_size,
+                           n_micro=microbatch_count(self.disc_freq,
+                                                    self.gen_freq,
+                                                    self.accum),
+                           seed=self.seed)
+
+    def _to_device(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        """[n_micro, B, H, W, C] numpy images → [n_micro, B, C, H, W] on the
+        device."""
+        img = torch.from_numpy(batch["image"]).to(self.device,
+                                                  non_blocking=True)
+        return {"image": img.permute(0, 1, 4, 2, 3).contiguous()}
+
+    def fit(self):
+        num_epochs = int(self.cfg.train.num_epochs)
+        loader = self._make_train_loader()
+        self.state = create_train_state(self.task, loader.steps_per_epoch())
+        while self.epoch < num_epochs:
+            epoch_metrics: Dict[str, list] = {}
+            t_epoch = time.perf_counter()
+            n_steps = 0
+            for batch in loader.epoch(self.epoch):
+                # no per-step device sync: metrics stay on the device until
+                # the epoch ends
+                metrics = superstep(self.task, self.state,
+                                    self._to_device(batch), self.disc_freq,
+                                    self.gen_freq, self.accum)
+                n_steps += 1
+                for k, v in metrics.items():
+                    epoch_metrics.setdefault(f"train/{k}", []).append(v)
+            means = {k: float(torch.stack(v).mean())
+                     for k, v in epoch_metrics.items()}
+            dt = time.perf_counter() - t_epoch   # after the fetch above
+            means["perf/images_per_sec"] = (
+                self.batch_size * loader.n_micro * n_steps / max(dt, 1e-9))
+            self.logger.log_scalars(means, self.state.step)
+            loss_str = " ".join(f"{k.split('/')[-1]}={v:.4f}"
+                                for k, v in means.items())
+            print(f"epoch {self.epoch} [{dt:.1f}s] {loss_str}", flush=True)
+            if self.epoch % int(self.cfg.val.get("every_n_epochs", 1)) == 0:
+                self.validate(self.state.step)
+            self.epoch += 1
+
+    def validate(self, global_step: int):
+        """Real grid from the val set; Fake grid from the fixed noise."""
+        cfg = self.cfg
+        mean, std = cfg.train.data_mean, cfg.train.data_std
+        val_ds = instantiate(cfg.dataset.val, **_dataset_kwargs(cfg))
+        real = val_ds.load(list(range(min(8, len(val_ds)))))["image"]
+        self.logger.log_image(
+            "Real", make_grid(unnormalise(real, mean, std), ncol=8),
+            global_step)
+        fake = self.task.generate(self._fixed_noise,
+                                  generator=self._generator(10_000
+                                                            + self.epoch))
+        fake = fake.permute(0, 2, 3, 1).cpu().numpy()
+        self.logger.log_image(
+            "Fake", make_grid(unnormalise(fake[..., :3], mean, std), ncol=8),
+            global_step)

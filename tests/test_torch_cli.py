@@ -1,0 +1,89 @@
+"""The port's CLI, run_network_torch.py, at small widths on the CPU: in a
+subprocess it trains HoloGAN through the JAX package's conf tree and loads
+no JAX module; in-process it refuses what it cannot run with a clear
+message."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import run_network_torch
+from tests.conftest import CONF_DIR, REPO_ROOT
+from lightning_gan_zoo_tpu.config import compose as jax_compose
+from lightning_gan_zoo_tpu_torch.config import compose
+
+SMALL = ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
+         "save_ckpts=False", "~figures", "precision=32",
+         "generator.in_planes=4", "discriminator.out_planes=4",
+         "model.noise_dim=8", "train.batch_size=2", "dataset.n=12",
+         "train.num_epochs=1"]
+FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax",
+           "lightning_gan_zoo_tpu")
+
+
+def _run_cli(args):
+    """run_network_torch.main(args) in a fresh interpreter; prints the
+    top-level packages of every loaded module that the port must not
+    load."""
+    code = (
+        "import sys; import run_network_torch as r; "
+        f"rc = r.main({args!r}); "
+        f"print('FOREIGN', sorted({{m.split('.')[0] for m in sys.modules}}"
+        f" & set({FOREIGN!r}))); sys.exit(rc)")
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_cli_trains_hologan_without_jax(tmp_path):
+    out = _run_cli(SMALL + [f"output_root={tmp_path}", "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    line = re.search(r"^epoch 0 \[.*\] (.*)$", out.stdout, re.M)
+    assert line, out.stdout
+    for k in ("d_loss", "g_loss", "q_loss", "images_per_sec"):
+        assert re.search(rf"\b{k}=\d", line.group(1)), line.group(1)
+    assert "FOREIGN []" in out.stdout
+    run = tmp_path / "hologan" / "version_0"
+    assert (run / "metrics.csv").exists()
+    assert {p.name for p in (run / "images").iterdir()} == {
+        "Real_step6.png", "Fake_step6.png"}
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["generator.resample=shear"], "shear"),
+    (["calc_fid=True"], "calc_fid"),
+    (["save_ckpts=True"], "save_ckpts"),
+    (["+expt=dc_gan"], "not yet ported"),
+])
+def test_cli_refuses_unported(extra, message, tmp_path, capsys):
+    rc = run_network_torch.main(SMALL + extra + [f"output_root={tmp_path}",
+                                                 "--device", "cpu"])
+    assert rc != 0
+    assert message in capsys.readouterr().err
+
+
+def test_cli_device_cuda_without_card_fails(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    rc = run_network_torch.main(SMALL + [f"output_root={tmp_path}"])
+    assert rc != 0
+    assert "CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "hologan").exists()
+
+
+def test_compose_matches_jax_package():
+    args = SMALL + ["generator.view_args.azimuth_low=200"]
+    assert compose(CONF_DIR, args) == jax_compose(CONF_DIR, args)
+
+
+def test_package_imports_no_jax():
+    pkg = Path(REPO_ROOT) / "lightning_gan_zoo_tpu_torch"
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|"
+        r"lightning_gan_zoo_tpu)\b", re.M)
+    files = list(pkg.rglob("*.py")) + [Path(REPO_ROOT) / "run_network_torch.py",
+                                       Path(REPO_ROOT) / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders
