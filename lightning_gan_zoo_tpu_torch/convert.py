@@ -1,4 +1,4 @@
-"""JAX → PyTorch weights for HoloGAN.
+"""JAX → PyTorch weights for HoloGAN and π-GAN.
 
 Turns the JAX package's flax variable trees ({"params": ..., "spectral":
 ...}, leaves as numpy arrays — ``jax.device_get`` gives that) into the port's
@@ -16,6 +16,9 @@ Layout rules, each pinned by tests/test_torch_convert.py:
   * Spectral-norm ``u`` carries across from the "spectral" collection.
   * The discriminator flattens in NHWC order in both frameworks, so its
     Dense rows need no permutation.
+  * π-GAN's SIREN layers keep flax's (in, out) kernel as it is.
+  * CoordConv: the coordinate channels follow the image channels in both
+    frameworks, so HWIO → OIHW is the whole conversion.
 """
 from __future__ import annotations
 
@@ -80,4 +83,49 @@ def discriminator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd.update(_dense(p["Dense_0"], "dense_logit"))
     sd.update(_dense(p["Dense_1"], "dense_enc"))
     sd.update(_dense(p["Dense_2"], "dense_z"))
+    return sd
+
+
+def _siren(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.kernel": _t(p["kernel"]), f"{prefix}.bias": _t(p["bias"])}
+
+
+def _mapping(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """MappingNetwork Dense_0..2 (hidden), Dense_3 (γ), Dense_4 (β)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        sd.update(_dense(p[f"Dense_{i}"], f"{prefix}.layers.{i}"))
+    sd.update(_dense(p["Dense_3"], f"{prefix}.to_gamma"))
+    sd.update(_dense(p["Dense_4"], f"{prefix}.to_beta"))
+    return sd
+
+
+def pigan_generator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax π-GAN Generator variables → models.pigan.Generator state_dict."""
+    p = variables["params"]["nerf_renderer"]["rad_field"]
+    pre = "nerf_renderer.rad_field"
+    sd = _mapping(p["MappingNetwork_0"], f"{pre}.mapping")
+    sd.update(_mapping(p["rgb_mapping"], f"{pre}.rgb_mapping"))
+    trunk = p["SirenNet_0"]
+    for i in range(len(trunk)):
+        sd.update(_siren(trunk[f"Siren_{i}"]["Dense_0"],
+                         f"{pre}.siren.layers.{i}"))
+    sd.update(_dense(p["to_alpha"], f"{pre}.to_alpha"))
+    sd.update(_siren(p["to_rgb_siren"]["Dense_0"], f"{pre}.to_rgb_siren"))
+    sd.update(_dense(p["to_rgb"], f"{pre}.to_rgb"))
+    return sd
+
+
+def pigan_discriminator_state_dict(variables: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """Flax π-GAN progressive Discriminator variables →
+    models.pigan.Discriminator state_dict."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in p.items():
+        if name.startswith("block_"):
+            for conv in ("res", "conv1", "conv2"):
+                sd.update(_conv(node[conv]["Conv_0"], f"{name}.{conv}"))
+        else:                               # from_rgb_<r>, final_conv
+            sd.update(_conv(node["Conv_0"], name))
     return sd

@@ -1,5 +1,5 @@
 """Shared building blocks (counterpart of lightning_gan_zoo_tpu/models/
-layers.py; only what HoloGAN uses is ported so far).
+layers.py; what HoloGAN and π-GAN use).
 
 Layout is NCHW / NCDHW inside the models, PyTorch's habit. Parameters stay
 float32; under ``precision: 16`` the Trainer runs the forward in bf16
@@ -92,3 +92,34 @@ class SpectralNormConv(nn.Module):
             sigma = v @ (w @ u_new)
             weight_sn = self.weight / sigma
         return F.conv2d(x, weight_sn, self.bias, self.stride, self.padding)
+
+
+def add_coords(x: torch.Tensor) -> torch.Tensor:
+    """Append normalised x and y coordinate channels, each a linspace over
+    [-1, 1] (x along W), after the image channels (AddCoords)."""
+    n, _, h, w = x.shape
+    ys = torch.linspace(-1.0, 1.0, h, device=x.device)
+    xs = torch.linspace(-1.0, 1.0, w, device=x.device)
+    coords = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)])
+    return torch.cat([x, coords[None].expand(n, 2, h, w).to(x.dtype)], dim=1)
+
+
+class CoordConv(nn.Conv2d):
+    """Conv2d over the input plus its two coordinate channels (CoordConv);
+    ``in_channels`` counts the input's own channels only."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_channels + 2, out_channels, kernel_size,
+                         stride=stride, padding=padding)
+        conv_init(self.weight, generator or torch.Generator().manual_seed(0))
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return super().forward(add_coords(x))
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 average pooling, stride 2."""
+    return F.avg_pool2d(x, 2)

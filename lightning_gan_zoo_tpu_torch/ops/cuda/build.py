@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (sm_90a) into
-one shared library with a plain C interface, ``build/torch_kernels/
-libgan_kernels.so`` at the repository root, and loaded with ``ctypes``. The
-library is built at first use and rebuilt when a source is newer than it.
-Nothing here runs at import time: a machine without ``nvcc`` imports this
-module and only fails if it asks for the library.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (sm_90a), one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface,
+``build/torch_kernels/libgan_kernels.so`` at the repository root, loaded
+with ``ctypes``. The library is built at first use and rebuilt when a source
+is newer than it. Nothing here runs at import time: a machine without
+``nvcc`` imports this module and only fails if it asks for the library.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ SOURCES_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libgan_kernels.so"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                 "-c"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 
 class KernelBuildError(RuntimeError):
@@ -41,6 +44,14 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    return " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+
+
 def build_library() -> Tuple[Path, str]:
     """Compile the kernels if the library is missing or older than a source.
     Returns (library path, compiler output); the output is empty when the
@@ -51,15 +62,33 @@ def build_library() -> Tuple[Path, str]:
             s.stat().st_mtime <= LIB_PATH.stat().st_mtime for s in srcs):
         return LIB_PATH, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    cmds = [[nvcc, *COMPILE_FLAGS, "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
+    try:
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        logs.append(_run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                          *map(str, objs)]))
+        os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader sees old or new
+    finally:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader sees old or new
-    return LIB_PATH, " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return LIB_PATH, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,9 +98,19 @@ def load_library() -> ctypes.CDLL:
     path, _ = build_library()
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    floats = ctypes.POINTER(ctypes.c_float)
     for name in ("lgzt_trilinear_fwd", "lgzt_trilinear_bwd"):
         fn = getattr(lib, name)
         # (in, coords, out, B, D, H, W, C, N, stream)
         fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
+    # (x, w0k, wmid, bias, gammas, betas, out, B, M, Cin, H, L, n_film,
+    #  w0s, stream)
+    lib.lgzt_siren_trunk_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [floats, ptr]
+    lib.lgzt_siren_trunk_fwd.restype = i32
+    # (x, w0k, wmid, bias, gammas, betas, dy, dx, dw0, dwm, db, dg, dbt,
+    #  hstash, adstash, part, part2, ps, B, M, Cin, H, L, n_film,
+    #  rows_per_block, n_split, w0s, stream)
+    lib.lgzt_siren_trunk_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [floats, ptr]
+    lib.lgzt_siren_trunk_bwd.restype = i32
     return lib

@@ -6,17 +6,26 @@ stacked superstep batches from the EpochLoader, runs the superstep, logs the
 epoch means and ``perf/images_per_sec``, and at each validation writes the
 Real grid and the Fake grid generated from fixed noise.
 
+The epoch schedules are the JAX Trainer's: ``variable_batch_size`` and
+resolution annealing change the batch size and the training resolution at
+their epochs (with the fade-in alpha reset), an epoch-scheduled
+``accumulate_grad_batches`` turns accumulation on, and the loader is rebuilt
+every epoch. ``train.fold_steps = K`` runs K consecutive supersteps over one
+loader stack of K·n_micro micro-batches, with the JAX loader's clamp of K to
+what the dataset can fill, so each epoch sees the same images as in JAX;
+the JAX package's gain from folding, one dispatch for K supersteps, is not
+reproduced here.
+
 Features of the JAX Trainer that are not ported yet (FID/KID, figures,
-checkpoints and resume, eval_only, folding, EMA, multi-device axes,
-profiling, annealing schedules) raise NotImplementedError when switched on;
-none is skipped quietly.
+checkpoints and resume, eval_only, EMA, multi-device axes, profiling) raise
+NotImplementedError when switched on; none is skipped quietly.
 """
 from __future__ import annotations
 
 import os
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -43,20 +52,18 @@ def unported_features(cfg: Config) -> List[str]:
         found.append("eval_only=true")
     if cfg.train.get("ckpt_dir"):
         found.append("train.ckpt_dir (resume)")
-    if int(cfg.train.get("fold_steps") or 1) > 1:
-        found.append("train.fold_steps > 1")
     if float(cfg.train.get("ema_decay") or 0.0) > 0.0:
         found.append("train.ema_decay > 0 (G weight EMA)")
+    if int(cfg.train.get("penalty_precision", 32)) == 16:
+        found.append("train.penalty_precision=16 (bf16 gradient penalty)")
+    if (cfg.get("nerf") or {}).get("remat", False):
+        found.append("nerf.remat=true")
     for key in ("num_gpus", "num_sp", "num_tp"):
         if int(cfg.get(key, 1) or 1) > 1:
             found.append(f"{key} > 1 (multi-device)")
-    for key in ("zero_opt", "fsdp", "profile", "use_resolution_annealing"):
+    for key in ("zero_opt", "fsdp", "profile"):
         if cfg.get(key, False):
             found.append(f"{key}=true")
-    if "variable_batch_size" in cfg:
-        found.append("variable_batch_size")
-    if not isinstance(cfg.get("accumulate_grad_batches", 1), (int, float)):
-        found.append("epoch-scheduled accumulate_grad_batches")
     for key in ("fast_dev_run", "verbose_shape"):
         if cfg.debug.get(key, False):
             found.append(f"debug.{key}=true")
@@ -109,8 +116,8 @@ class Trainer:
                                 device=self.device)
         self.disc_freq = int(cfg.optimisation.disc_freq)
         self.gen_freq = int(cfg.optimisation.gen_freq)
-        self.accum = max(int(cfg.get("accumulate_grad_batches", 1)), 1)
-        self.batch_size = int(cfg.train.batch_size)
+        self.current_batch_size = self._initial_batch_size()
+        self._active_fold = 1
         self.epoch = 0
         self._fixed_noise = self.task.sample_z(
             8, generator=self._generator(7))
@@ -119,12 +126,67 @@ class Trainer:
     def _generator(self, offset: int) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(self.seed + offset)
 
+    # -------------------------------------------------- epoch schedules
+    def _initial_batch_size(self) -> int:
+        if "variable_batch_size" in self.cfg:
+            return int(self.cfg.variable_batch_size.batch_sizes[0])
+        return int(self.cfg.train.batch_size)
+
+    def _accum_factor(self, epoch: Optional[int] = None) -> int:
+        epoch = self.epoch if epoch is None else epoch
+        node = self.cfg.get("accumulate_grad_batches", 1)
+        if isinstance(node, (int, float)):
+            return max(int(node), 1)
+        start = int(node.get("start_epoch", 0))
+        return int(node.get("accumulation_factor", 1)) if epoch >= start \
+            else 1
+
+    def _batch_size_at(self, epoch: int) -> int:
+        """The batch size the variable_batch_size schedule sets at
+        ``epoch``."""
+        bs = self._initial_batch_size()
+        if "variable_batch_size" not in self.cfg:
+            return bs
+        ups = list(self.cfg.variable_batch_size.update_epochs)
+        sizes = list(self.cfg.variable_batch_size.batch_sizes)
+        for e, up in enumerate(ups):
+            if up <= epoch and e + 1 < len(sizes):
+                bs = int(sizes[e + 1])
+        return bs
+
+    def _fold_at(self, dataset_len: int, batch_size: int, accum: int) -> int:
+        """train.fold_steps, clamped so one fold span fits the dataset."""
+        fold = max(1, int(self.cfg.train.get("fold_steps") or 1))
+        span = batch_size * microbatch_count(self.disc_freq, self.gen_freq,
+                                             accum)
+        return min(fold, max(1, dataset_len // max(span, 1)))
+
+    def _update_epoch_schedules(self):
+        """Variable batch size and resolution annealing at this epoch."""
+        cfg = self.cfg
+        if "variable_batch_size" in cfg:
+            self.current_batch_size = self._batch_size_at(self.epoch)
+            if self.epoch in list(cfg.variable_batch_size.update_epochs):
+                print(f"Batch size for this epoch: "
+                      f"{self.current_batch_size}")
+        if bool(cfg.get("use_resolution_annealing", False)):
+            ups = list(cfg.resolution_annealing.update_epochs)
+            res = list(cfg.resolution_annealing.resolutions)
+            if self.epoch in ups and ups.index(self.epoch) + 1 < len(res):
+                new_res = int(res[ups.index(self.epoch) + 1])
+                self.task.increase_resolution(new_res)
+                if self.state is not None:
+                    self.state.extra = self.task.reset_alpha(self.state.extra)
+                print(f"Training resolution → {new_res}")
+
     def _make_train_loader(self) -> EpochLoader:
         ds = instantiate(self.cfg.dataset.train, **_dataset_kwargs(self.cfg))
-        return EpochLoader(ds, self.batch_size,
-                           n_micro=microbatch_count(self.disc_freq,
-                                                    self.gen_freq,
-                                                    self.accum),
+        accum = self._accum_factor()
+        self._active_fold = self._fold_at(len(ds), self.current_batch_size,
+                                          accum)
+        n_micro = microbatch_count(self.disc_freq, self.gen_freq, accum)
+        return EpochLoader(ds, self.current_batch_size,
+                           n_micro=n_micro * self._active_fold,
                            seed=self.seed)
 
     def _to_device(self, batch: Dict[str, np.ndarray]
@@ -138,25 +200,36 @@ class Trainer:
     def fit(self):
         num_epochs = int(self.cfg.train.num_epochs)
         loader = self._make_train_loader()
-        self.state = create_train_state(self.task, loader.steps_per_epoch())
+        self.state = create_train_state(
+            self.task, loader.steps_per_epoch() * self._active_fold)
         while self.epoch < num_epochs:
+            self._update_epoch_schedules()
+            loader = self._make_train_loader()
+            accum, fold = self._accum_factor(), self._active_fold
+            n_micro = loader.n_micro // fold
             epoch_metrics: Dict[str, list] = {}
             t_epoch = time.perf_counter()
             n_steps = 0
             for batch in loader.epoch(self.epoch):
-                # no per-step device sync: metrics stay on the device until
+                stack = self._to_device(batch)
+                # fold consecutive supersteps over one loader stack; no
+                # per-step device sync: metrics stay on the device until
                 # the epoch ends
-                metrics = superstep(self.task, self.state,
-                                    self._to_device(batch), self.disc_freq,
-                                    self.gen_freq, self.accum)
+                for f in range(fold):
+                    metrics = superstep(
+                        self.task, self.state,
+                        {k: v[f * n_micro:(f + 1) * n_micro]
+                         for k, v in stack.items()},
+                        self.disc_freq, self.gen_freq, accum)
+                    for k, v in metrics.items():
+                        epoch_metrics.setdefault(f"train/{k}", []).append(v)
                 n_steps += 1
-                for k, v in metrics.items():
-                    epoch_metrics.setdefault(f"train/{k}", []).append(v)
             means = {k: float(torch.stack(v).mean())
                      for k, v in epoch_metrics.items()}
             dt = time.perf_counter() - t_epoch   # after the fetch above
             means["perf/images_per_sec"] = (
-                self.batch_size * loader.n_micro * n_steps / max(dt, 1e-9))
+                self.current_batch_size * loader.n_micro * n_steps
+                / max(dt, 1e-9))
             self.logger.log_scalars(means, self.state.step)
             loss_str = " ".join(f"{k.split('/')[-1]}={v:.4f}"
                                 for k, v in means.items())

@@ -38,6 +38,18 @@ def hologan_schedule(total_epochs: int, steps_per_epoch: int,
     return fn
 
 
+def pigan_decay_schedule(base_lr: float, target_lr: float,
+                         span: int = 10000) -> Schedule:
+    """π-GAN's LambdaLR: the lr ramps linearly from base_lr to target_lr over
+    ``span`` updates, then stays (a function of the update count alone)."""
+    ratio = target_lr / base_lr
+
+    def fn(count: int) -> float:
+        frac = min(max(count / span, 0.0), 1.0)
+        return (1.0 - frac) + ratio * frac
+    return fn
+
+
 def step_lr(step_size=-1, gamma=1.0, **_) -> Optional[Schedule]:
     """The config's default StepLR (step_size -1, gamma 1) is a no-op:
     None, a constant lr. A decaying StepLR is not ported yet."""

@@ -5,7 +5,8 @@ One superstep is one cycle of the reference's frequency-weighted optimizer
 alternation: ``disc_freq`` D updates, then ``gen_freq`` G updates, each over
 ``accum`` micro-batches whose gradients are averaged. HoloGAN's 1:2 cycle
 takes 3 micro-batches. z is sampled per micro-step from the task's
-``torch.Generator``.
+``torch.Generator``. The task's extra state (``state.extra``) goes to every
+loss and advances after every micro-step, as in the JAX superstep.
 """
 from __future__ import annotations
 
@@ -47,9 +48,10 @@ def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
                 micro = {k: v[i] for k, v in batches.items()}
                 z = task.sample_z(micro["image"].shape[0])
                 with task.autocast():
-                    loss, metrics = loss_fn(micro, z)
+                    loss, metrics = loss_fn(micro, z, state.extra)
                 (loss / accum).backward()
                 state.step += 1
+                state.extra = task.update_extra_after_microstep(state.extra)
                 i += 1
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v

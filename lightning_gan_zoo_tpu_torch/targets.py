@@ -44,6 +44,26 @@ def _hologan_task(cfg, logging_dir=None, *, device, **_kw):
     return HOLOGAN(cfg, device)
 
 
+@register("lightning_gan_zoo_tpu.models.pigan.Generator",
+          "core.models.pigan.Generator")
+def _pigan_g(**kw):
+    from .models import pigan
+    return _model_factory(pigan.Generator)(**kw)
+
+
+@register("lightning_gan_zoo_tpu.models.pigan.Discriminator",
+          "core.models.pigan.Discriminator")
+def _pigan_d(**kw):
+    from .models import pigan
+    return _model_factory(pigan.Discriminator)(**kw)
+
+
+@register("lightning_gan_zoo_tpu.tasks.PIGAN", "core.lightning_module.PIGAN")
+def _pigan_task(cfg, logging_dir=None, *, device, **_kw):
+    from .tasks import PIGAN
+    return PIGAN(cfg, device)
+
+
 @register("lightning_gan_zoo_tpu.data.datasets.Synthetic")
 def _synthetic(**kw):
     from .data.datasets import Synthetic

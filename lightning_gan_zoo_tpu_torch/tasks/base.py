@@ -4,11 +4,14 @@ A GANTask owns one GAN family's generator and discriminator modules, on the
 device the Trainer gives it, its noise distribution, its explicit
 ``torch.Generator``s, and its losses. The superstep (runtime/steps.py)
 calls ``disc_loss`` / ``gen_loss`` under the task's autocast policy and
-back-propagates them.
+back-propagates them. A task may carry extra training state (π-GAN's
+fade-in alpha): ``initial_extra`` makes it, the losses read it, and the
+superstep advances it with ``update_extra_after_microstep`` after every
+micro-step.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -28,7 +31,8 @@ class GANTask:
         # parameters are initialised on the CPU from one seeded stream, so
         # the weights do not depend on the device
         init = torch.Generator().manual_seed(seed)
-        self.generator = instantiate(cfg.generator, init_generator=init
+        self.generator = instantiate(cfg.generator, init_generator=init,
+                                     precision=self.precision
                                      ).to(self.device)
         self.discriminator = instantiate(cfg.discriminator,
                                          init_generator=init).to(self.device)
@@ -63,15 +67,27 @@ class GANTask:
         return (d_opt, schedule(int(cfg.optimisation.disc_freq)),
                 g_opt, schedule(int(cfg.optimisation.gen_freq)))
 
+    def initial_extra(self) -> Dict[str, Any]:
+        """Task-specific training state, carried in TrainState.extra."""
+        return {}
+
+    def update_extra_after_microstep(self, extra: Dict[str, Any]
+                                     ) -> Dict[str, Any]:
+        """Called once per micro-step (the reference's update_iter_
+        cadence)."""
+        return extra
+
     def generate(self, z: torch.Tensor, generator: torch.Generator | None
                  = None) -> torch.Tensor:
-        """Eval-mode image generation (validation grids)."""
+        """Eval-mode image generation (validation grids), NCHW."""
         raise NotImplementedError
 
-    def disc_loss(self, batch: Dict[str, torch.Tensor], z: torch.Tensor
+    def disc_loss(self, batch: Dict[str, torch.Tensor], z: torch.Tensor,
+                  extra: Dict[str, Any]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError
 
-    def gen_loss(self, batch: Dict[str, torch.Tensor], z: torch.Tensor
+    def gen_loss(self, batch: Dict[str, torch.Tensor], z: torch.Tensor,
+                 extra: Dict[str, Any]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError

@@ -28,7 +28,7 @@ class HOLOGAN(GANTask):
             return self.generator(
                 z, generator=generator or self.view_generator).float()
 
-    def disc_loss(self, batch, z):
+    def disc_loss(self, batch, z, extra):
         real = batch["image"]
         with torch.no_grad():
             fake = self.generator(z, generator=self.view_generator)
@@ -41,7 +41,7 @@ class HOLOGAN(GANTask):
         return loss_disc + q_loss, {"d_loss": loss_disc.detach(),
                                     "q_loss": q_loss.detach()}
 
-    def gen_loss(self, batch, z):
+    def gen_loss(self, batch, z, extra):
         fake = self.generator(z, generator=self.view_generator)
         d_fake, z_pred = self.discriminator(fake)
         loss_gen = L.bce_with_logits(d_fake, torch.ones_like(d_fake))

@@ -1,7 +1,7 @@
 """The port's CLI, run_network_torch.py, at small widths on the CPU: in a
-subprocess it trains HoloGAN through the JAX package's conf tree and loads
-no JAX module; in-process it refuses what it cannot run with a clear
-message."""
+subprocess it trains HoloGAN and π-GAN through the JAX package's conf tree
+and loads no JAX module; in-process it refuses what it cannot run with a
+clear message."""
 import re
 import subprocess
 import sys
@@ -20,6 +20,14 @@ SMALL = ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
          "generator.in_planes=4", "discriminator.out_planes=4",
          "model.noise_dim=8", "train.batch_size=2", "dataset.n=12",
          "train.num_epochs=1"]
+PIGAN_SMALL = ["+expt=pigan", "machine=local", "dataset=synthetic",
+               "~figures", "model.noise_dim=16", "nerf.siren_dim_hidden=32",
+               "nerf.siren_num_layers=2", "nerf.n_pts_per_ray=4",
+               "nerf.n_pts_per_ray_fine=4", "train.features_disc=8",
+               "resolution_annealing.resolutions=[8,16,32]",
+               "variable_batch_size.batch_sizes=[4,2,2]",
+               "resolution_annealing.update_epochs=[1,2]",
+               "train.num_epochs=3", "dataset.n=16"]
 FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax",
            "lightning_gan_zoo_tpu")
 
@@ -51,11 +59,36 @@ def test_cli_trains_hologan_without_jax(tmp_path):
         "Real_step6.png", "Fake_step6.png"}
 
 
+def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
+    """π-GAN's own config at tiny widths, bf16 policy (the trunk's plain
+    version on the CPU): three epochs at 8, 16 and 32 px with batches 4, 2,
+    2, the fold clamped to what 16 images fill (2, 4, then 1 under ×4
+    accumulation), each epoch's losses logged."""
+    out = _run_cli(PIGAN_SMALL + [f"output_root={tmp_path}", "--device",
+                                  "cpu"])
+    assert out.returncode == 0, out.stderr
+    epochs = re.findall(r"^epoch (\d) \[.*\] (.*)$", out.stdout, re.M)
+    assert [e for e, _ in epochs] == ["0", "1", "2"], out.stdout
+    for _, line in epochs:
+        for k in ("d_loss", "r1", "g_loss", "images_per_sec"):
+            assert re.search(rf"\b{k}=-?\d", line), line
+    assert "Training resolution → 16" in out.stdout
+    assert "Training resolution → 32" in out.stdout
+    assert "FOREIGN []" in out.stdout
+    # micro-steps: 2 folded supersteps × 2, 4 × 2, 1 × (1 + 1)·4
+    run = tmp_path / "pigan" / "version_0"
+    assert {p.name for p in (run / "images").iterdir()} == {
+        f"{kind}_step{s}.png" for kind in ("Real", "Fake")
+        for s in (4, 12, 20)}
+
+
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
     (["calc_fid=True"], "calc_fid"),
     (["save_ckpts=True"], "save_ckpts"),
     (["+expt=dc_gan"], "not yet ported"),
+    (["num_sp=2"], "num_sp"),
+    (["+train.penalty_precision=16"], "penalty_precision"),
 ])
 def test_cli_refuses_unported(extra, message, tmp_path, capsys):
     rc = run_network_torch.main(SMALL + extra + [f"output_root={tmp_path}",

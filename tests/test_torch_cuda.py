@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from lightning_gan_zoo_tpu_torch.models import hologan
+from lightning_gan_zoo_tpu_torch.nerf.siren import SirenNet
 from lightning_gan_zoo_tpu_torch.ops import grid_sample
+from lightning_gan_zoo_tpu_torch.ops import siren_trunk as pt
+from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
 from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
 
 pytestmark = pytest.mark.cuda
@@ -68,3 +71,63 @@ def test_generator_kernel_matches_gather_twin(gen):
     with torch.no_grad():
         np.testing.assert_allclose(g(z, views).cpu().numpy(),
                                    twin(z, views).cpu().numpy(), atol=1e-4)
+
+
+def _trunk_inputs(gen, b, m, h, layers, n_film, unfilmed=False):
+    """SIREN-init weights, x ~ N(0, 0.25), γ ~ 1 + N(0, 0.01), β ~ N(0, 0.01)
+    (or γ = 1, β = 0 when ``unfilmed``), and a bf16 cotangent."""
+    d = dict(device="cuda")
+    bound = (6 / h) ** 0.5
+    x = torch.randn(b, m, 3, generator=gen, **d) * 0.5
+    w0k = (torch.rand(3, h, generator=gen, **d) * 2 - 1) / 3
+    wmid = (torch.rand(layers - 1, h, h, generator=gen, **d) * 2 - 1) * bound
+    bs = (torch.rand(layers, h, generator=gen, **d) * 2 - 1) * bound
+    if unfilmed:
+        g, bt = torch.ones(b, 1, h, **d), torch.zeros(b, 1, h, **d)
+    else:
+        g = torch.randn(b, n_film, h, generator=gen, **d) * 0.1 + 1
+        bt = torch.randn(b, n_film, h, generator=gen, **d) * 0.1
+    dy = torch.randn(b, m, h, generator=gen, **d).to(torch.bfloat16)
+    return (x, w0k, wmid, bs, g, bt), dy
+
+
+@pytest.mark.parametrize("b,m,h,layers,n_film,unfilmed", [
+    (2, 300, 128, 3, 2, False), (3, 1000, 256, 7, 6, False),
+    (3, 999, 256, 7, 1, True), (2, 77, 64, 4, 4, False)])
+def test_trunk_kernels_match_plain(gen, b, m, h, layers, n_film, unfilmed):
+    """Forward within 2⁻⁸ absolute and every gradient group within 0.01 of
+    its max |ref| (the JAX tests allow 0.04 and 0.03; these kernels round
+    where the plain version rounds, so the forward lands bit-identical),
+    and the backward bit-identical from run to run (no atomics)."""
+    args, dy = _trunk_inputs(gen, b, m, h, layers, n_film, unfilmed)
+    w0s = (30.0,) + (1.0,) * (layers - 1)
+    y = st.launch_forward(*args, w0s)
+    err = (y.float() - pt.trunk_forward(*args, w0s).float()).abs().max()
+    assert float(err) <= 2.0 ** -8
+    got = st.launch_backward(*args, dy, w0s)
+    want = pt.trunk_backward(*args, dy, w0s)
+    for g_, w in zip(got, want):
+        assert float((g_ - w).abs().max()) <= 0.01 * float(w.abs().max())
+    again = st.launch_backward(*args, dy, w0s)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_sirennet_bf16_runs_the_kernels_and_counts(gen):
+    """Under precision 16 a CUDA SirenNet goes through one forward and one
+    backward launch, with finite float32 gradients."""
+    net = SirenNet(3, 128, 128, 3, bf16=True).cuda()
+    x = torch.randn(2, 500, 3, generator=gen, device="cuda")
+    g = torch.randn(2, 3, 128, generator=gen, device="cuda") * 0.1 + 1
+    fwd, bwd = st.FWD_LAUNCHES, st.BWD_LAUNCHES
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = net(x, g.to(torch.bfloat16), (g - 1).to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 500, 128)
+    y.float().square().sum().backward()
+    assert (st.FWD_LAUNCHES - fwd, st.BWD_LAUNCHES - bwd) == (1, 1)
+    assert all(bool(torch.isfinite(p.grad).all()) for p in net.parameters())
+
+
+def test_sirennet_kernel_refuses_a_width_it_cannot_take(gen):
+    net = SirenNet(3, 96, 96, 2, bf16=True).cuda()
+    with pytest.raises(ValueError, match="dim_hidden"):
+        net(torch.randn(1, 10, 3, generator=gen, device="cuda"))
