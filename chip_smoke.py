@@ -34,13 +34,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      batches 128, 32, 8, ×4 accumulation in the last epoch, fold_steps 8
      clamped to the 512 images); per epoch the losses must be finite; the
      trunk launch counts must be exactly what the path implies, and the
-     trained generator through the kernels must match its plain-trunk twin.
+     trained generator through the kernels must match its plain-trunk twin;
+  7. dc_gan on MNIST-format data: idx files of procedural digits written
+     with numpy under build/, 1 channel, 64 px, batch 128, features 64,
+     bf16, G weight EMA 0.999; two epochs with checkpoints leave exactly
+     model_epoch-1, then a second run resumes from that directory to epoch
+     3: it must print the resume, start at epoch 2, continue the step count,
+     and hold the saved state bit for bit right after the restore;
+  8. wgan: RMSprop (the optax rule) at lr 5e-5, batch 64, 5 critic updates
+     per G update; after training every D parameter lies within ±0.01;
+  9. wgan_gp: the instance-norm D, batch 64; the gradient penalty is finite
+     and positive;
+ 10. gan_stability_r1: 128 px, batch 64, nfilter 16, nf_max 512, noise 256,
+     the bf16 R1 penalty (penalty_precision 16); afterwards one D loss from
+     the trained weights at penalty precision 16 has an r1 within rel 0.05 of
+     the same call at 32.
+Phases 7–10 run the 2D families through run_network_torch.main() at their
+configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
+each checks finite losses every epoch, every parameter and buffer on the
+card and the config's width, and prints each epoch's images/s.
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and a JSON line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
+import io
 import json
 import math
 import shutil
@@ -224,38 +244,66 @@ def timings(vox, coords, gen):
     return t
 
 
-def run_main(argv, counter):
-    """run_network_torch.main(argv) with ``counter``'s launch counts set to
-    0 just before and read just after. Returns (trainer, launches, wall s)."""
+class Tee(io.StringIO):
+    """Keeps what is printed while passing it on."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def kernel_counters():
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk, trilinear
+    return {"trilinear": trilinear, "siren_trunk": siren_trunk}
+
+
+def run_main(argv, counter=None, tag="smoke", trainer_cls=None):
+    """run_network_torch.main(argv) with every kernel's launch count set to
+    0 just before and read just after, output under
+    build/chip_smoke_output/<tag>. Returns (trainer, launches of
+    ``counter``'s kernel, wall s, printed text); ``counter`` None returns
+    the launches of every kernel (the 2D paths run none)."""
     import torch
     import run_network_torch
     from lightning_gan_zoo_tpu_torch.runtime import loop
 
     trainers = []
+    base = trainer_cls or loop.Trainer
 
-    class RecordedTrainer(loop.Trainer):
+    class RecordedTrainer(base):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             trainers.append(self)
 
     original = loop.Trainer
     loop.Trainer = RecordedTrainer
-    out_root = REPO / "build" / "chip_smoke_output"
+    out_root = REPO / "build" / "chip_smoke_output" / tag
     shutil.rmtree(out_root, ignore_errors=True)
     argv = [*argv, f"output_root={out_root}", "version=smoke", "--device",
             "cuda"]
+    counters = kernel_counters()
+    printed = Tee(sys.stdout)
     try:
-        counter.FWD_LAUNCHES = counter.BWD_LAUNCHES = 0
+        for c in counters.values():
+            c.FWD_LAUNCHES = c.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
-        rc = run_network_torch.main(argv)
+        with contextlib.redirect_stdout(printed):
+            rc = run_network_torch.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fwd": counter.FWD_LAUNCHES, "bwd": counter.BWD_LAUNCHES}
+        launches = {name: {"fwd": c.FWD_LAUNCHES, "bwd": c.BWD_LAUNCHES}
+                    for name, c in counters.items()}
     finally:
         loop.Trainer = original
     check(rc == 0, f"run_network_torch.main returned {rc}")
     check(len(trainers) == 1, "the main path built no Trainer")
-    return trainers[0], launches, wall
+    if counter is not None:
+        launches = launches[counter.__name__.rsplit(".", 1)[-1]]
+    return trainers[0], launches, wall, printed.getvalue()
 
 
 def epoch_rows(trainer, keys):
@@ -275,10 +323,10 @@ def hologan_main_path():
     from lightning_gan_zoo_tpu_torch.models import hologan
     from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
 
-    trainer, launches, wall = run_main(
+    trainer, launches, wall, _ = run_main(
         ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
          "save_ckpts=False", "~figures", "train.num_epochs=1",
-         "dataset.n=384"], kt)
+         "dataset.n=384"], kt, "hologan")
     cfg = trainer.cfg
 
     n_super = int(cfg.dataset.n) // (int(cfg.train.batch_size) * 3)
@@ -425,7 +473,7 @@ def pigan_main_path():
     import torch
     from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
 
-    trainer, launches, wall = run_main(PIGAN_ARGV, st)
+    trainer, launches, wall, _ = run_main(PIGAN_ARGV, st, "pigan")
     cfg, task = trainer.cfg, trainer.task
     plan = pigan_plan(cfg)
     df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
@@ -492,8 +540,216 @@ def pigan_main_path():
           f"G through the trunk kernels disagrees with plain: {err}")
     return launches
 
+# ------------------------------------------------------------ 2D families
+#: the smoke's MNIST-format data: procedural digits, written as idx files
+MNIST_ROOT = REPO / "build" / "chip_smoke_mnist"
+#: seven-segment strokes (x0, y0, x1, y1) on a 28-px canvas, per digit
+SEGMENTS = {"a": (9, 5, 19, 5), "b": (19, 5, 19, 14), "c": (19, 14, 19, 23),
+            "d": (9, 23, 19, 23), "e": (9, 14, 9, 23), "f": (9, 5, 9, 14),
+            "g": (9, 14, 19, 14)}
+DIGITS = ["abcdef", "bc", "abged", "abgcd", "fgbc", "afgcd", "afgedc",
+          "abc", "abcdefg", "abcdfg"]
+
+
+def write_mnist(n_train, n_val, seed=0):
+    """Procedural digits (seven-segment strokes with a random shift,
+    thickness and brightness) as MNIST idx files under build/."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    raw = MNIST_ROOT / "MNIST" / "raw"
+    raw.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:28, 0:28].astype(np.float32)
+    for prefix, n in (("train", n_train), ("t10k", n_val)):
+        labels = (np.arange(n) % 10).astype(np.uint8)
+        images = np.zeros((n, 28, 28), np.float32)
+        for i, lab in enumerate(labels):
+            dx, dy = rng.uniform(-3, 3, 2)
+            width = rng.uniform(1.2, 2.2)
+            for seg in DIGITS[lab]:
+                x0, y0, x1, y1 = SEGMENTS[seg]
+                t = np.clip(((xx - x0 - dx) * (x1 - x0) + (yy - y0 - dy)
+                             * (y1 - y0)) / max((x1 - x0) ** 2
+                                                + (y1 - y0) ** 2, 1), 0, 1)
+                dist = np.hypot(xx - x0 - dx - t * (x1 - x0),
+                                yy - y0 - dy - t * (y1 - y0))
+                images[i] = np.maximum(images[i], np.clip(width + 0.5 - dist,
+                                                          0, 1))
+            images[i] *= rng.uniform(0.7, 1.0)
+        pixels = (images * 255).astype(np.uint8)
+        for kind, arr in (("images-idx3", pixels), ("labels-idx1", labels)):
+            head = bytes([0, 0, 8, arr.ndim]) + b"".join(
+                int(d).to_bytes(4, "big") for d in arr.shape)
+            (raw / f"{prefix}-{kind}-ubyte").write_bytes(head + arr.tobytes())
+
+
+def check_2d_run(trainer, name, widths, keys):
+    """Finite losses every epoch, every parameter and buffer on the card,
+    the config's own width; prints each epoch's images/s."""
+    task, cfg = trainer.task, trainer.cfg
+    for net in (task.generator, task.discriminator):
+        check(all(t.is_cuda for t in [*net.parameters(), *net.buffers()]),
+              f"{name}: a parameter or buffer is not on the card")
+    for key, want in widths.items():
+        got = cfg
+        for part in key.split("."):
+            got = got[part]
+        check(got == want, f"{name}: {key} = {got}, not the config's {want}")
+    rows = epoch_rows(trainer, keys + ("perf/images_per_sec",))
+    card = card_line()
+    for row in rows:
+        print(f"{name} step {int(row['step'])}: "
+              + " ".join(f"{k.split('/')[-1]} {row[k]:.4f}" for k in keys)
+              + f"; perf/images_per_sec {row['perf/images_per_sec']:.1f} "
+              f"({card})")
+    return rows
+
+
+def dcgan_main_path():
+    import torch
+    from lightning_gan_zoo_tpu_torch.runtime import loop
+    from lightning_gan_zoo_tpu_torch.runtime.checkpoint import (
+        CheckpointManager)
+
+    write_mnist(n_train=1024, n_val=64)
+    argv = ["+expt=dc_gan", "dataset=mnist",
+            f"filepaths.mnist_parent_directory={MNIST_ROOT}",
+            "calc_fid=False", "~figures", "train.ema_decay=0.999"]
+    widths = {"train.img_size": 64, "train.batch_size": 128,
+              "train.features_disc": 64, "train.features_gen": 64,
+              "train.channels_img": 1, "model.noise_dim": 100,
+              "precision": 16}
+    keys = ("train/d_loss", "train/g_loss")
+    first, launches, wall, _ = run_main(
+        argv + ["train.num_epochs=2", "save_ckpts=True"], None, "dc_gan")
+    print(f"dc_gan: 2 epochs of 4 supersteps in {wall:.1f} s, kernel "
+          f"launches {launches}")
+    check_2d_run(first, "dc_gan", widths, keys)
+    ckpt_dir = first.logging_dir / "ckpts"
+    names = sorted(p.name for p in ckpt_dir.iterdir())
+    check(names == ["model_epoch-1"], f"checkpoints left: {names}")
+    saved_step = first.state.step
+
+    restored = {}
+
+    class CheckedResume(loop.Trainer):
+        def resume(self):
+            super().resume()
+            path = CheckpointManager.select_resume(
+                self.cfg.train.get("ckpt_dir"))
+            saved, _ = CheckpointManager.restore(path)
+            now = self.checkpoint_payload()
+            restored.update(epoch=self.epoch, step=self.state.step,
+                            equal=same_state(saved, now))
+
+    second, _, wall, printed = run_main(
+        argv + ["train.num_epochs=3", f"train.ckpt_dir={ckpt_dir}"], None,
+        "dc_gan_resumed", CheckedResume)
+    check(f"Resuming from {ckpt_dir / 'model_epoch-1'}" in printed,
+          "the resumed run did not print its resume")
+    check(restored.get("epoch") == 2 and "epoch 2 [" in printed
+          and "epoch 0 [" not in printed and "epoch 1 [" not in printed,
+          f"the resumed run did not start at epoch 2: {restored}")
+    check(restored["step"] == saved_step, f"step {restored['step']} after "
+          f"the restore, {saved_step} saved")
+    check(restored["equal"], "the state after the restore differs from the "
+          "saved one")
+    per_epoch = 2 * (1024 // (2 * int(second.cfg.train.batch_size)))
+    check(second.state.step == saved_step + per_epoch,
+          f"step {second.state.step} after the resumed epoch")
+    check(second.state.g_ema is not None and all(
+        bool(torch.isfinite(v).all()) for v in second.state.g_ema.values()),
+        "the G weight EMA is missing or not finite")
+    print(f"dc_gan resume: from {ckpt_dir.name}/model_epoch-1 at epoch 2, "
+          f"step {saved_step}, state bit-identical after the restore; "
+          f"epoch 2 in {wall:.1f} s")
+    check_2d_run(second, "dc_gan resumed", widths, keys)
+
+
+def same_state(a, b) -> bool:
+    """Nested dicts / lists of tensors and numbers, equal bit for bit."""
+    import torch
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype \
+            and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_state, a, b))
+    return a == b
+
+
+def wgan_main_path():
+    from lightning_gan_zoo_tpu_torch.runtime.optim import RMSprop
+    trainer, launches, wall, _ = run_main(
+        ["+expt=wgan", "dataset=synthetic", "calc_fid=False", "~figures",
+         "train.num_epochs=2", "dataset.n=1536"], None, "wgan")
+    print(f"wgan: 2 epochs of 4 supersteps (5 D + 1 G micro-batches of 64) "
+          f"in {wall:.1f} s, kernel launches {launches}")
+    check_2d_run(trainer, "wgan", {
+        "train.img_size": 64, "train.batch_size": 64,
+        "train.features_disc": 64, "train.features_gen": 64,
+        "optimisation.disc_freq": 5, "optimisation.lr": 5e-5,
+        "precision": 16}, ("train/d_loss", "train/g_loss"))
+    d_opt = trainer.state.d_opt
+    check(type(d_opt) is RMSprop and d_opt.defaults["lr"] == 5e-5,
+          f"the critic's optimizer is {type(d_opt).__name__}")
+    clip = float(trainer.cfg.train.weight_clip)
+    worst = max(float(p.detach().abs().max())
+                for p in trainer.task.discriminator.parameters())
+    print(f"wgan: max |D parameter| {worst:.6g} (clip {clip:g})")
+    check(worst <= clip, f"a D parameter exceeds the clip: {worst}")
+
+
+def wgan_gp_main_path():
+    trainer, launches, wall, _ = run_main(
+        ["+expt=wgan_gp", "dataset=synthetic", "calc_fid=False", "~figures",
+         "train.num_epochs=2", "dataset.n=512"], None, "wgan_gp")
+    print(f"wgan_gp: 2 epochs of 4 supersteps in {wall:.1f} s, kernel "
+          f"launches {launches}")
+    rows = check_2d_run(trainer, "wgan_gp", {
+        "train.img_size": 64, "train.batch_size": 64,
+        "train.features_disc": 64, "train.features_gen": 64,
+        "discriminator.norm": "instance_norm2d", "precision": 16},
+        ("train/d_loss", "train/gp", "train/g_loss"))
+    check(all(r["train/gp"] > 0 for r in rows), "the gradient penalty is 0")
+
+
+def r1_main_path():
+    import torch
+    trainer, launches, wall, _ = run_main(
+        ["+expt=gan_stability_r1", "dataset=synthetic", "calc_fid=False",
+         "~figures", "train.num_epochs=2", "dataset.n=512"], None, "r1")
+    print(f"gan_stability_r1: 2 epochs of 4 supersteps at 128 px in "
+          f"{wall:.1f} s, kernel launches {launches}")
+    cfg, task = trainer.cfg, trainer.task
+    check_2d_run(trainer, "gan_stability_r1", {
+        "train.img_size": 128, "train.batch_size": 64,
+        "generator.nfilter": 16, "generator.nfilter_max": 512,
+        "discriminator.nfilter": 16, "discriminator.nfilter_max": 512,
+        "model.noise_dim": 256, "train.penalty_precision": 16,
+        "precision": 16}, ("train/d_loss", "train/r1", "train/g_loss"))
+    # one D loss from the trained weights, the bf16 penalty against f32
+    ds = trainer._make_train_loader().dataset
+    images = torch.from_numpy(ds.load(list(range(64)))["image"]).cuda()
+    batch = {"image": images.permute(0, 3, 1, 2).contiguous()}
+    z = task.sample_z(64, generator=torch.Generator("cuda").manual_seed(3))
+    r1 = {}
+    for prec in (16, 32):
+        task.penalty_precision = prec
+        with task.autocast():
+            _, metrics = task.disc_loss(batch, z, trainer.state.extra)
+        r1[prec] = float(metrics["r1"])
+    task.penalty_precision = 16
+    rel = abs(r1[16] - r1[32]) / max(abs(r1[32]), 1e-12)
+    print(f"gan_stability_r1: r1 from the trained weights at penalty "
+          f"precision 16: {r1[16]:.6g}, at 32: {r1[32]:.6g} (rel "
+          f"{rel:.3e}, limit 0.05)")
+    check(math.isfinite(r1[16]) and rel <= 0.05,
+          f"bf16 R1 disagrees with f32: {r1}")
+
 
 def main() -> int:
+    t_start = time.perf_counter()
     probe()
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -512,6 +768,10 @@ def main() -> int:
     tri_launches = hologan_main_path()
     torch.cuda.empty_cache()
     trunk_launches = pigan_main_path()
+    for phase in (dcgan_main_path, wgan_main_path, wgan_gp_main_path,
+                  r1_main_path):
+        torch.cuda.empty_cache()
+        phase()
 
     kernels = [
         {"name": f"trilinear_{k}", "route": "cuda", "source": SOURCE,
@@ -527,6 +787,8 @@ def main() -> int:
     # the backward's groups are sums over a million rows; its bound is
     # relative to each group's largest value
     kernels[-1]["max_rel_err"] = max(e[2] for e in tr_errs)
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""JAX → PyTorch weights for HoloGAN and π-GAN.
+"""JAX → PyTorch weights for HoloGAN, π-GAN, the DCGAN family and the R1
+ResNet.
 
 Turns the JAX package's flax variable trees ({"params": ..., "spectral":
 ...}, leaves as numpy arrays — ``jax.device_get`` gives that) into the port's
@@ -19,6 +20,13 @@ Layout rules, each pinned by tests/test_torch_convert.py:
   * π-GAN's SIREN layers keep flax's (in, out) kernel as it is.
   * CoordConv: the coordinate channels follow the image channels in both
     frameworks, so HWIO → OIHW is the whole conversion.
+  * BatchNorm: params scale / bias → weight / bias, batch_stats mean / var
+    → running_mean / running_var; InstanceNorm's scale / bias likewise.
+  * The DCGAN G's stem (ConvT k4 s1 VALID from 1×1) and its k4 s2 "SAME"
+    blocks take the same flip; D's head is a plain k4 s2 VALID conv.
+  * The R1 ResNet: G reshapes its Dense output NHWC and D flattens NHWC in
+    both frameworks (the modules permute), so Dense rows need no
+    permutation either.
 """
 from __future__ import annotations
 
@@ -32,6 +40,10 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, order="C", copy=True))
 
 
+def _bias(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.bias": _t(p["bias"])} if "bias" in p else {}
+
+
 def _dense(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
             f"{prefix}.bias": _t(p["bias"])}
@@ -39,7 +51,7 @@ def _dense(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
 
 def _conv(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)),
-            f"{prefix}.bias": _t(p["bias"])}
+            **_bias(p, prefix)}
 
 
 def _conv_transpose(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -47,7 +59,7 @@ def _conv_transpose(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
     nsp = k.ndim - 2
     k = k[(slice(None, None, -1),) * nsp]
     k = k.transpose(nsp, nsp + 1, *range(nsp))
-    return {f"{prefix}.weight": _t(k), f"{prefix}.bias": _t(p["bias"])}
+    return {f"{prefix}.weight": _t(k), **_bias(p, prefix)}
 
 
 def generator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -128,4 +140,80 @@ def pigan_discriminator_state_dict(variables: Mapping
                 sd.update(_conv(node[conv]["Conv_0"], f"{name}.{conv}"))
         else:                               # from_rgb_<r>, final_conv
             sd.update(_conv(node["Conv_0"], name))
+    return sd
+
+
+def _norm(variables: Mapping, name: str, prefix: str
+          ) -> Dict[str, torch.Tensor]:
+    """BatchNorm or InstanceNorm ``name``: its affine, and BatchNorm's
+    running statistics from the batch_stats collection."""
+    p = variables["params"][name]
+    sd = {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"])}
+    stats = variables.get("batch_stats", {}).get(name)
+    if stats is not None:
+        sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+        sd[f"{prefix}.running_var"] = _t(stats["var"])
+    return sd
+
+
+def dcgan_generator_state_dict(variables: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax DCGAN Generator variables (params + batch_stats) →
+    models.dcgan.Generator state_dict."""
+    p = variables["params"]
+    n = sum(k.startswith("ConvTranspose_") for k in p)
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(n - 1):
+        sd.update(_conv_transpose(p[f"ConvTranspose_{i}"], f"blocks.{i}.convt"))
+        sd.update(_norm(variables, f"BatchNorm_{i}", f"blocks.{i}.norm"))
+    sd.update(_conv_transpose(p[f"ConvTranspose_{n - 1}"], "out"))
+    return sd
+
+
+def dcgan_discriminator_state_dict(variables: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """Flax DCGAN Discriminator variables (params + batch_stats, batch or
+    instance norm) → models.dcgan.Discriminator state_dict."""
+    p = variables["params"]
+    n = sum(k.startswith("Conv_") for k in p)
+    norm = "BatchNorm" if "BatchNorm_0" in p else "InstanceNorm"
+    sd = _conv(p["Conv_0"], "stem")
+    for i in range(1, n - 1):
+        sd.update(_conv(p[f"Conv_{i}"], f"blocks.{i - 1}.conv"))
+        sd.update(_norm(variables, f"{norm}_{i - 1}", f"blocks.{i - 1}.norm"))
+    sd.update(_conv(p[f"Conv_{n - 1}"], "head"))
+    return sd
+
+
+def _resnet_block(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for conv in ("conv_s", "conv_0", "conv_1"):
+        if conv in p:
+            sd.update(_conv(p[conv], f"{prefix}.{conv}"))
+    return sd
+
+
+def resnet_generator_state_dict(variables: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax R1 ResNet Generator variables →
+    models.resnet_stability.Generator state_dict."""
+    p = variables["params"]
+    n = sum(k.startswith("ResnetBlock_") for k in p)
+    sd = _dense(p["Dense_0"], "fc")
+    for i in range(n - 1):
+        sd.update(_resnet_block(p[f"ResnetBlock_{i}"], f"blocks.{i}"))
+    sd.update(_resnet_block(p[f"ResnetBlock_{n - 1}"], "block_out"))
+    sd.update(_conv(p["conv_img"], "conv_img"))
+    return sd
+
+
+def resnet_discriminator_state_dict(variables: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """Flax R1 ResNet Discriminator variables →
+    models.resnet_stability.Discriminator state_dict."""
+    p = variables["params"]
+    sd = _conv(p["conv_img"], "conv_img")
+    for i in range(sum(k.startswith("ResnetBlock_") for k in p)):
+        sd.update(_resnet_block(p[f"ResnetBlock_{i}"], f"blocks.{i}"))
+    sd.update(_dense(p["Dense_0"], "fc"))
     return sd

@@ -1,5 +1,5 @@
 """Shared building blocks (counterpart of lightning_gan_zoo_tpu/models/
-layers.py; what HoloGAN and π-GAN use).
+layers.py).
 
 Layout is NCHW / NCDHW inside the models, PyTorch's habit. Parameters stay
 float32; under ``precision: 16`` the Trainer runs the forward in bf16
@@ -7,6 +7,7 @@ autocast, as the JAX package's bf16 compute policy does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -21,10 +22,19 @@ def conv_init(weight: torch.Tensor, generator: torch.Generator):
         weight.normal_(0.0, 0.02, generator=generator)
 
 
-def linear(in_features: int, out_features: int, generator: torch.Generator
-           ) -> nn.Linear:
+def linear(in_features: int, out_features: int, generator: torch.Generator,
+           lecun: bool = False) -> nn.Linear:
+    """A Linear layer with zero bias and ``conv_init`` weights, or with
+    ``lecun``, flax's default Dense init (lecun_normal: a normal truncated at
+    ±2σ, rescaled to variance 1/fan_in)."""
     m = nn.Linear(in_features, out_features)
-    conv_init(m.weight, generator)
+    if lecun:
+        std = (1.0 / in_features) ** 0.5 / .87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+    else:
+        conv_init(m.weight, generator)
     nn.init.zeros_(m.bias)
     return m
 
@@ -123,3 +133,95 @@ class CoordConv(nn.Conv2d):
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2×2 average pooling, stride 2."""
     return F.avg_pool2d(x, 2)
+
+
+def avg_pool3_s2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool(3, stride 2, pad 1) with the zero padding counted in the
+    divisor (torch's AvgPool2d default, the reference's ResNet D)."""
+    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+
+
+def upsample2_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour ×2 upsample."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm with flax's semantics (the JAX package's
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``), not torch's:
+
+      * the running variance is updated with the *biased* batch variance
+        (``torch.nn.BatchNorm2d`` uses the unbiased one);
+      * running = 0.9·running + 0.1·batch (flax momentum 0.9);
+      * the batch statistics are reduced in float32 whatever the autocast
+        policy, as flax's ``force_float32_reductions``;
+      * ``update_stats = False`` (see ``frozen_stats``) normalises with the
+        batch statistics without touching the buffers, as a flax apply with
+        ``mutable=False``;
+      * eval mode normalises with the running statistics.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.update_stats = True
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+                torch._foreach_lerp_([self.running_mean, self.running_var],
+                                     [mean, var], self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Within the block, ``module``'s BatchNorms use batch statistics but
+    leave their running buffers alone (the JAX package's penalty passes
+    apply D with ``mutable=False``)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm2d(affine=True) without running statistics: per-sample,
+    per-channel statistics over H and W (biased variance, eps 1e-5), then a
+    float32 scale and bias."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self.eps)
+
+
+def make_norm(kind: str, num_features: int) -> nn.Module:
+    """The D/G norm choice: 'batch_norm' | 'instance_norm2d' | 'identity'."""
+    if kind == "batch_norm":
+        return BatchNorm2d(num_features)
+    if kind == "instance_norm2d":
+        return InstanceNorm(num_features)
+    if kind in ("identity", "none", None):
+        return nn.Identity()
+    raise ValueError(f"Unknown norm: {kind!r}")

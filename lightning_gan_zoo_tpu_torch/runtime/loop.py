@@ -4,7 +4,13 @@ for one device.
 Builds the task on the device it is given, streams shuffled epochs of
 stacked superstep batches from the EpochLoader, runs the superstep, logs the
 epoch means and ``perf/images_per_sec``, and at each validation writes the
-Real grid and the Fake grid generated from fixed noise.
+Real grid and the Fake grid generated from fixed noise (with the EMA of G's
+parameters when ``train.ema_decay`` > 0) and, with ``save_ckpts``, a
+checkpoint (runtime/checkpoint.py). ``train.ckpt_dir`` resumes from the
+checkpoint there: the next epoch, the epoch schedules fast-forwarded without
+resetting the restored extra state, and every random stream where the
+saved run left it, so a resumed run continues as the uninterrupted run
+would have.
 
 The epoch schedules are the JAX Trainer's: ``variable_batch_size`` and
 resolution annealing change the batch size and the training resolution at
@@ -17,8 +23,9 @@ the JAX package's gain from folding, one dispatch for K supersteps, is not
 reproduced here.
 
 Features of the JAX Trainer that are not ported yet (FID/KID, figures,
-checkpoints and resume, eval_only, EMA, multi-device axes, profiling) raise
-NotImplementedError when switched on; none is skipped quietly.
+eval_only, asynchronous checkpoints, the preemption rescue, multi-device
+axes, profiling) raise NotImplementedError when switched on; none is
+skipped quietly.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from ..config.registry import instantiate
 from ..data.pipeline import EpochLoader
 from ..figures.image_io import make_grid, unnormalise
 from ..utils.logging import ExperimentLogger
+from .checkpoint import CheckpointManager
 from .state import create_train_state
 from .steps import microbatch_count, superstep
 
@@ -44,18 +52,12 @@ def unported_features(cfg: Config) -> List[str]:
     found = []
     if cfg.get("calc_fid", False) and cfg.val.get("use_fid", True):
         found.append("calc_fid=True (FID/KID; pass calc_fid=False)")
-    if cfg.get("save_ckpts", True):
-        found.append("save_ckpts=True (checkpoints; pass save_ckpts=False)")
+    if cfg.get("save_ckpts_async", False):
+        found.append("save_ckpts_async=true (asynchronous checkpoints)")
     if cfg.get("figures"):
         found.append("figure callbacks (pass '~figures')")
     if cfg.get("eval_only", False):
         found.append("eval_only=true")
-    if cfg.train.get("ckpt_dir"):
-        found.append("train.ckpt_dir (resume)")
-    if float(cfg.train.get("ema_decay") or 0.0) > 0.0:
-        found.append("train.ema_decay > 0 (G weight EMA)")
-    if int(cfg.train.get("penalty_precision", 32)) == 16:
-        found.append("train.penalty_precision=16 (bf16 gradient penalty)")
     if (cfg.get("nerf") or {}).get("remat", False):
         found.append("nerf.remat=true")
     for key in ("num_gpus", "num_sp", "num_tp"):
@@ -112,6 +114,12 @@ class Trainer:
         self.version = _resolve_version(cfg, out_root)
         self.logging_dir = out_root / cfg.name / self.version
         self.logger = ExperimentLogger(self.logging_dir)
+        # new checkpoints land in this run's directory; train.ckpt_dir is
+        # only scanned for the resume
+        self.ckpt = CheckpointManager(self.logging_dir / "ckpts",
+                                      save_ckpts=bool(cfg.get("save_ckpts",
+                                                              True)))
+        self.ema_decay = float(cfg.train.get("ema_decay") or 0.0)
         self.task = instantiate(cfg.model.lm, cfg, str(self.logging_dir),
                                 device=self.device)
         self.disc_freq = int(cfg.optimisation.disc_freq)
@@ -161,8 +169,23 @@ class Trainer:
                                              accum)
         return min(fold, max(1, dataset_len // max(span, 1)))
 
-    def _update_epoch_schedules(self):
-        """Variable batch size and resolution annealing at this epoch."""
+    def _epoch_superstep_table(self, dataset_len: int,
+                               num_epochs: int) -> List[int]:
+        """The supersteps of every epoch, from the batch-size, accumulation
+        and fold schedules, as the loader will count them: the LR schedules
+        map an update count to its epoch through this table."""
+        table = []
+        for e in range(num_epochs):
+            bs, accum = self._batch_size_at(e), self._accum_factor(e)
+            span = bs * microbatch_count(self.disc_freq, self.gen_freq, accum)
+            fold = self._fold_at(dataset_len, bs, accum)
+            table.append((dataset_len // (span * fold)) * fold)
+        return table
+
+    def _update_epoch_schedules(self, replay: bool = False):
+        """Variable batch size and resolution annealing at this epoch.
+        ``replay`` fast-forwards them after a resume without resetting the
+        restored fade-in alpha."""
         cfg = self.cfg
         if "variable_batch_size" in cfg:
             self.current_batch_size = self._batch_size_at(self.epoch)
@@ -175,7 +198,7 @@ class Trainer:
             if self.epoch in ups and ups.index(self.epoch) + 1 < len(res):
                 new_res = int(res[ups.index(self.epoch) + 1])
                 self.task.increase_resolution(new_res)
-                if self.state is not None:
+                if self.state is not None and not replay:
                     self.state.extra = self.task.reset_alpha(self.state.extra)
                 print(f"Training resolution → {new_res}")
 
@@ -197,11 +220,69 @@ class Trainer:
                                                   non_blocking=True)
         return {"image": img.permute(0, 1, 4, 2, 3).contiguous()}
 
+    # ------------------------------------------------------ checkpoints
+    def checkpoint_payload(self) -> dict:
+        """The whole training state: both modules (buffers included), both
+        optimizers, the EMA twin, the counters, the task's extra state and
+        the state of every random stream the training step draws from."""
+        st, task = self.state, self.task
+        return {"generator": task.generator.state_dict(),
+                "discriminator": task.discriminator.state_dict(),
+                "g_opt": st.g_opt.state_dict(),
+                "d_opt": st.d_opt.state_dict(),
+                "g_ema": st.g_ema,
+                "d_steps": st.d_steps, "g_steps": st.g_steps,
+                "step": st.step, "extra": st.extra,
+                "rng": {k: g.get_state()
+                        for k, g in task.generators().items()}}
+
+    def load_checkpoint_payload(self, payload: dict):
+        st, task = self.state, self.task
+        task.generator.load_state_dict(payload["generator"])
+        task.discriminator.load_state_dict(payload["discriminator"])
+        st.g_opt.load_state_dict(payload["g_opt"])
+        st.d_opt.load_state_dict(payload["d_opt"])
+        if st.g_ema is not None:
+            if payload["g_ema"] is None:
+                raise ValueError("train.ema_decay > 0 but the checkpoint "
+                                 "holds no G weight EMA")
+            with torch.no_grad():
+                for k, v in st.g_ema.items():
+                    v.copy_(payload["g_ema"][k])
+        st.d_steps, st.g_steps, st.step = (int(payload[k]) for k in
+                                           ("d_steps", "g_steps", "step"))
+        st.extra = {k: v.to(self.device) if torch.is_tensor(v) else v
+                    for k, v in payload["extra"].items()}
+        for name, gen in task.generators().items():
+            gen.set_state(payload["rng"][name])
+
+    def resume(self):
+        """Restore from train.ckpt_dir when it holds a checkpoint; the run
+        then starts at the epoch after the saved one."""
+        path = CheckpointManager.select_resume(self.cfg.train.get("ckpt_dir"))
+        if path is None:
+            return
+        payload, meta = CheckpointManager.restore(path)
+        self.load_checkpoint_payload(payload)
+        self.epoch = int(meta["epoch"]) + 1
+        print(f"Resuming from {path} at epoch {self.epoch}, step "
+              f"{self.state.step}", flush=True)
+        resumed_at = self.epoch
+        for e in range(resumed_at):
+            self.epoch = e
+            self._update_epoch_schedules(replay=True)
+        self.epoch = resumed_at
+
+    # ------------------------------------------------------------ train
     def fit(self):
         num_epochs = int(self.cfg.train.num_epochs)
         loader = self._make_train_loader()
         self.state = create_train_state(
-            self.task, loader.steps_per_epoch() * self._active_fold)
+            self.task, loader.steps_per_epoch() * self._active_fold,
+            epoch_supersteps=self._epoch_superstep_table(len(loader.dataset),
+                                                         num_epochs),
+            ema=self.ema_decay > 0.0)
+        self.resume()
         while self.epoch < num_epochs:
             self._update_epoch_schedules()
             loader = self._make_train_loader()
@@ -220,7 +301,7 @@ class Trainer:
                         self.task, self.state,
                         {k: v[f * n_micro:(f + 1) * n_micro]
                          for k, v in stack.items()},
-                        self.disc_freq, self.gen_freq, accum)
+                        self.disc_freq, self.gen_freq, accum, self.ema_decay)
                     for k, v in metrics.items():
                         epoch_metrics.setdefault(f"train/{k}", []).append(v)
                 n_steps += 1
@@ -239,7 +320,9 @@ class Trainer:
             self.epoch += 1
 
     def validate(self, global_step: int):
-        """Real grid from the val set; Fake grid from the fixed noise."""
+        """Real grid from the val set; Fake grid from the fixed noise; with
+        save_ckpts, a checkpoint. Without FID every validation counts as an
+        improvement, so the latest epoch's checkpoint is the one kept."""
         cfg = self.cfg
         mean, std = cfg.train.data_mean, cfg.train.data_std
         val_ds = instantiate(cfg.dataset.val, **_dataset_kwargs(cfg))
@@ -247,10 +330,12 @@ class Trainer:
         self.logger.log_image(
             "Real", make_grid(unnormalise(real, mean, std), ncol=8),
             global_step)
-        fake = self.task.generate(self._fixed_noise,
-                                  generator=self._generator(10_000
-                                                            + self.epoch))
+        fake = self.task.generate(
+            self._fixed_noise, generator=self._generator(10_000 + self.epoch),
+            params=self.state.eval_g_params(self.task.generator))
         fake = fake.permute(0, 2, 3, 1).cpu().numpy()
         self.logger.log_image(
             "Fake", make_grid(unnormalise(fake[..., :3], mean, std), ncol=8),
             global_step)
+        self.ckpt.save_best(self.checkpoint_payload(), epoch=self.epoch,
+                            fid=None, meta={"best_fid": None})

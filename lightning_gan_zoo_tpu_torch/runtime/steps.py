@@ -6,7 +6,10 @@ alternation: ``disc_freq`` D updates, then ``gen_freq`` G updates, each over
 ``accum`` micro-batches whose gradients are averaged. HoloGAN's 1:2 cycle
 takes 3 micro-batches. z is sampled per micro-step from the task's
 ``torch.Generator``. The task's extra state (``state.extra``) goes to every
-loss and advances after every micro-step, as in the JAX superstep.
+loss and advances after every micro-step, as in the JAX superstep. A task
+that ``clips_disc`` (WGAN) clamps D's parameters at the top of every
+micro-step, D phase and G phase alike; with ``ema_decay`` > 0 the EMA of
+G's parameters follows every G update.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Dict
 import torch
 
 from .optim import optimizer_step
-from .state import TrainState
+from .state import TrainState, update_ema
 
 
 def microbatch_count(disc_freq: int, gen_freq: int, accum: int = 1) -> int:
@@ -23,8 +26,8 @@ def microbatch_count(disc_freq: int, gen_freq: int, accum: int = 1) -> int:
 
 
 def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
-              disc_freq: int, gen_freq: int, accum: int = 1
-              ) -> Dict[str, torch.Tensor]:
+              disc_freq: int, gen_freq: int, accum: int = 1,
+              ema_decay: float = 0.0) -> Dict[str, torch.Tensor]:
     """Run one superstep in place on the task's modules and ``state``.
 
     ``batches`` holds tensors with a leading axis of
@@ -46,6 +49,8 @@ def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
             opt.zero_grad(set_to_none=True)
             for _a in range(accum):
                 micro = {k: v[i] for k, v in batches.items()}
+                if task.clips_disc:
+                    task.clip_disc()
                 z = task.sample_z(micro["image"].shape[0])
                 with task.autocast():
                     loss, metrics = loss_fn(micro, z, state.extra)
@@ -62,6 +67,8 @@ def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
             else:
                 optimizer_step(opt, schedule, state.g_steps)
                 state.g_steps += 1
+                if ema_decay > 0.0 and state.g_ema is not None:
+                    update_ema(state, task.generator, ema_decay)
     task.generator.requires_grad_(True)
     task.discriminator.requires_grad_(True)
     return {k: (sums[k] / counts[k]).float() for k in sums}

@@ -23,6 +23,34 @@ def _model_factory(cls):
     return factory
 
 
+@register("lightning_gan_zoo_tpu.models.dcgan.Generator",
+          "core.models.standard_networks.Generator")
+def _dcgan_g(**kw):
+    from .models import dcgan
+    return _model_factory(dcgan.Generator)(**kw)
+
+
+@register("lightning_gan_zoo_tpu.models.dcgan.Discriminator",
+          "core.models.standard_networks.Discriminator")
+def _dcgan_d(**kw):
+    from .models import dcgan
+    return _model_factory(dcgan.Discriminator)(**kw)
+
+
+@register("lightning_gan_zoo_tpu.models.resnet_stability.Generator",
+          "core.submodules.gan_stability.models.resnet.Generator")
+def _resnet_g(**kw):
+    from .models import resnet_stability
+    return _model_factory(resnet_stability.Generator)(**kw)
+
+
+@register("lightning_gan_zoo_tpu.models.resnet_stability.Discriminator",
+          "core.submodules.gan_stability.models.resnet.Discriminator")
+def _resnet_d(**kw):
+    from .models import resnet_stability
+    return _model_factory(resnet_stability.Discriminator)(**kw)
+
+
 @register("lightning_gan_zoo_tpu.models.hologan.Generator",
           "core.models.hologan_generator.Generator")
 def _hologan_g(**kw):
@@ -37,11 +65,18 @@ def _hologan_d(**kw):
     return _model_factory(hologan.Discriminator)(**kw)
 
 
-@register("lightning_gan_zoo_tpu.tasks.HOLOGAN",
-          "core.lightning_module.HOLOGAN")
-def _hologan_task(cfg, logging_dir=None, *, device, **_kw):
-    from .tasks import HOLOGAN
-    return HOLOGAN(cfg, device)
+def _task(name):
+    def factory(cfg, logging_dir=None, *, device, **_kw):
+        from . import tasks
+        return getattr(tasks, name)(cfg, device)
+    factory.__name__ = f"make_{name}"
+    return factory
+
+
+for _name in ("DCGAN", "GANStabilityR1", "WGAN", "WGANGP", "HOLOGAN",
+              "PIGAN"):
+    register(f"lightning_gan_zoo_tpu.tasks.{_name}",
+             f"core.lightning_module.{_name}")(_task(_name))
 
 
 @register("lightning_gan_zoo_tpu.models.pigan.Generator",
@@ -58,10 +93,18 @@ def _pigan_d(**kw):
     return _model_factory(pigan.Discriminator)(**kw)
 
 
-@register("lightning_gan_zoo_tpu.tasks.PIGAN", "core.lightning_module.PIGAN")
-def _pigan_task(cfg, logging_dir=None, *, device, **_kw):
-    from .tasks import PIGAN
-    return PIGAN(cfg, device)
+@register("lightning_gan_zoo_tpu.data.datasets.ImageFolder",
+          "torchvision.datasets.ImageFolder")
+def _image_folder(**kw):
+    from .data.datasets import ImageFolder
+    return ImageFolder(**kw)
+
+
+@register("lightning_gan_zoo_tpu.data.datasets.MNIST",
+          "torchvision.datasets.MNIST")
+def _mnist(**kw):
+    from .data.datasets import MNIST
+    return MNIST(**kw)
 
 
 @register("lightning_gan_zoo_tpu.data.datasets.Synthetic")
@@ -86,6 +129,12 @@ def _uniform(low=-1.0, high=1.0):
 def _adam(params, **kw):
     from .runtime.optim import adam
     return adam(params, **kw)
+
+
+@register("torch.optim.RMSprop")
+def _rmsprop(params, **kw):
+    from .runtime.optim import rmsprop
+    return rmsprop(params, **kw)
 
 
 @register("torch.optim.lr_scheduler.StepLR")

@@ -8,23 +8,37 @@ back-propagates them. A task may carry extra training state (π-GAN's
 fade-in alpha): ``initial_extra`` makes it, the losses read it, and the
 superstep advances it with ``update_extra_after_microstep`` after every
 micro-step.
+
+Penalty branches (R1, WGAN-GP) run D inside ``penalty_scope``, the
+counterpart of the JAX package's ``discriminator_hp`` twin: float32 with
+autocast off at ``train.penalty_precision: 32``, the bf16 policy at 16, and
+never an update of D's BatchNorm buffers. Every ``torch.Generator`` the task
+draws from is listed by ``generators()``, so a checkpoint can carry their
+states and a resumed run draws what the uninterrupted run would have.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import contextlib
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..config.node import Config
 from ..config.registry import instantiate
+from ..models.layers import frozen_stats
 
 
 class GANTask:
+    #: set by a task that clamps D's parameters before every micro-step
+    #: (WGAN's weight clipping)
+    clips_disc: bool = False
+
     def __init__(self, cfg: Config, device):
         self.cfg = cfg
         self.device = torch.device(device)
         #: precision 16 → bf16 autocast with float32 parameters
         self.precision = int(cfg.get("precision", 32))
+        self.penalty_precision = int(cfg.train.get("penalty_precision", 32))
         self.noise_distn = instantiate(cfg.model.noise_distn)
         self.noise_dim = int(cfg.model.noise_dim)
         seed = int(cfg.get("seed", 42))
@@ -42,16 +56,36 @@ class GANTask:
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.precision == 16)
 
+    @contextlib.contextmanager
+    def penalty_scope(self):
+        """D's passes for a gradient penalty: bf16 autocast at
+        penalty_precision 16, float32 with autocast off at 32; D's
+        BatchNorm buffers stay as they are."""
+        with frozen_stats(self.discriminator), torch.autocast(
+                self.device.type, dtype=torch.bfloat16,
+                enabled=self.penalty_precision == 16):
+            yield
+
+    def generators(self) -> Dict[str, torch.Generator]:
+        """Every random stream the training step draws from, by name."""
+        return {"z": self.z_generator}
+
+    def clip_disc(self):
+        """Pre-process D's parameters before a micro-step (WGAN)."""
+
     def sample_z(self, n: int, generator: torch.Generator | None = None
                  ) -> torch.Tensor:
         return self.noise_distn.sample((n, self.noise_dim),
                                        generator or self.z_generator)
 
-    def configure_optimizers(self, steps_per_epoch: int):
+    def configure_optimizers(self, steps_per_epoch: int,
+                             epoch_supersteps: Optional[Sequence[int]] = None):
         """(d_opt, d_schedule, g_opt, g_schedule). A schedule maps the
         optimizer's update count to an lr multiplier (None: constant lr).
         Each optimizer's count advances ``freq`` times per superstep, so its
-        schedule is built with that multiplier."""
+        schedule is built with that multiplier; ``epoch_supersteps``, the
+        Trainer's table of supersteps per epoch, keeps the count → epoch
+        mapping exact where that number changes."""
         cfg = self.cfg
         sched_cfg = cfg.optimisation.get("lr_scheduler")
 
@@ -59,7 +93,8 @@ class GANTask:
             if sched_cfg is None:
                 return None
             return instantiate(sched_cfg, steps_per_epoch=steps_per_epoch,
-                               updates_per_superstep=freq)
+                               updates_per_superstep=freq,
+                               epoch_supersteps=epoch_supersteps)
 
         d_opt = instantiate(cfg.disc_optimiser,
                             self.discriminator.parameters())
@@ -77,10 +112,34 @@ class GANTask:
         cadence)."""
         return extra
 
+    def run_generator(self, params: Optional[Dict[str, torch.Tensor]],
+                      *args, **kwargs):
+        """G with ``params`` (e.g. the EMA twin) in place of its own
+        parameters, its own buffers kept; G itself when ``params`` is
+        None."""
+        if params is None:
+            return self.generator(*args, **kwargs)
+        return torch.func.functional_call(self.generator, params, args,
+                                          kwargs)
+
+    @contextlib.contextmanager
+    def eval_generator(self):
+        """G in eval mode (BatchNorm on its running statistics), without
+        gradients, under the task's autocast; train mode is restored after."""
+        was_training = self.generator.training
+        self.generator.eval()
+        try:
+            with torch.no_grad(), self.autocast():
+                yield
+        finally:
+            self.generator.train(was_training)
+
     def generate(self, z: torch.Tensor, generator: torch.Generator | None
-                 = None) -> torch.Tensor:
-        """Eval-mode image generation (validation grids), NCHW."""
-        raise NotImplementedError
+                 = None, params: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+        """Eval-mode image generation (validation grids), NCHW float32."""
+        with self.eval_generator():
+            return self.run_generator(params, z).float()
 
     def disc_loss(self, batch: Dict[str, torch.Tensor], z: torch.Tensor,
                   extra: Dict[str, Any]

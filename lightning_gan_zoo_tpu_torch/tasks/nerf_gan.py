@@ -5,8 +5,9 @@
     fade-in ``alpha`` and the iteration count are the task's extra state,
     advanced once per micro-step and reset to α = 1 at each increase.
   * The D step renders the fakes under ``torch.no_grad()`` (the JAX step
-    stops their gradient); R1 runs D in float32 outside autocast, as the
-    JAX package's f32 discriminator twin does.
+    stops their gradient); R1 runs D in the task's penalty scope (float32
+    outside autocast at train.penalty_precision 32, the bf16 policy at 16),
+    as the JAX package's discriminator twin does.
   * LR decay: linear over 10k updates to lr/4 (D) and lr/5 (G), a function
     of each optimizer's update count.
   * The task owns explicit generators for the view, depth-jitter and fine
@@ -40,6 +41,10 @@ class PIGAN(GANTask):
             torch.Generator(self.device).manual_seed(seed + k)
             for k in (2, 3, 4))
 
+    def generators(self):
+        return {**super().generators(), "view": self.view_generator,
+                "depth": self.depth_generator, "fine": self.fine_generator}
+
     # -- extra state ---------------------------------------------------------
     def initial_extra(self):
         return {"alpha": torch.zeros((), device=self.device),
@@ -59,7 +64,8 @@ class PIGAN(GANTask):
         return {"alpha": torch.ones((), device=self.device), "iterations": 0}
 
     # -- optimizers -----------------------------------------------------------
-    def configure_optimizers(self, steps_per_epoch: int):
+    def configure_optimizers(self, steps_per_epoch: int,
+                             epoch_supersteps=None):
         cfg = self.cfg
         d_lr = float(cfg.disc_optimiser.lr)
         g_lr = float(cfg.gen_optimiser.lr)
@@ -95,7 +101,7 @@ class PIGAN(GANTask):
             fake = self.render_fake(z)[..., :3].permute(0, 3, 1, 2)
         divergence = L.hinge_d_loss(self._d(real, extra),
                                     self._d(fake, extra))
-        with torch.autocast(self.device.type, enabled=False):
+        with self.penalty_scope():
             r1 = float(self.cfg.loss_weight.reg) * L.r1_penalty(
                 lambda x: self._d(x, extra), real)
         loss = r1 + divergence
@@ -107,10 +113,10 @@ class PIGAN(GANTask):
         return loss, {"g_loss": loss.detach()}
 
     # -- sampling ---------------------------------------------------------------
-    def generate(self, z, generator=None):
+    def generate(self, z, generator=None, params=None):
         """Eval-mode RGBA at train.img_size (deterministic depths), NCHW."""
-        with torch.no_grad(), self.autocast():
-            out = self.generator(
-                z, sample_res=int(self.cfg.train.img_size), train=False,
-                view_generator=generator or self.view_generator)
+        with self.eval_generator():
+            out = self.run_generator(
+                params, z, sample_res=int(self.cfg.train.img_size),
+                train=False, view_generator=generator or self.view_generator)
         return out.float().permute(0, 3, 1, 2)

@@ -3,6 +3,9 @@
     python -m lightning_gan_zoo_tpu_torch.utils.profile_superstep \\
         +expt=pigan machine=small dataset=synthetic '~figures' \\
         'resolution_annealing.update_epochs=[1,2]' train.num_epochs=3
+    python -m lightning_gan_zoo_tpu_torch.utils.profile_superstep \\
+        +expt=wgan dataset=synthetic calc_fid=False '~figures' \\
+        save_ckpts=False train.num_epochs=1
 
 For every epoch of the config's schedule (batch size, resolution,
 accumulation) it builds the Trainer's task on the card, takes one loader
@@ -10,8 +13,11 @@ stack, runs warm-up supersteps, times ``--steps`` supersteps by the host
 clock between two synchronisations (images/s), then traces ``--trace``
 supersteps with ``torch.profiler``: the device-busy share is the union of
 the kernels' intervals over the traced window, and device time is summed by
-kind and by kernel. Prints one JSON line per epoch, the card's name and
-power limit beside the numbers.
+kind and by kernel. Tracing adds host time to every launch, so a
+launch-bound superstep looks idler traced than it is; the busy time per
+superstep over the untraced superstep's wall time is printed beside it.
+Prints one JSON line per epoch, the card's name and power limit beside the
+numbers.
 """
 from __future__ import annotations
 
@@ -66,12 +72,15 @@ def _union_us(intervals: List[Tuple[float, float]]) -> float:
 def device_time(prof) -> Tuple[Dict[str, float], Dict[str, float], float,
                                 int]:
     """(ms by kind, ms by kernel name, busy ms as the union of the kernels'
-    intervals, kernel count)."""
+    intervals, kernel count). The device timeline also carries the ranges
+    of user annotations (``Optimizer.step#Adam.step``), which span kernels
+    and the gaps between them; they are not kernels and are left out."""
     by_kind: Dict[str, float] = {}
     by_name: Dict[str, float] = {}
     spans = []
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         start, end = ev.time_range.start, ev.time_range.end
         ms = (end - start) / 1e3
@@ -99,7 +108,8 @@ def main(argv=None) -> int:
                                   "version=profile"])
     trainer = Trainer(cfg, "cuda")
     task, card = trainer.task, card_line()
-    trainer.state = create_train_state(task, steps_per_epoch=1)
+    trainer.state = create_train_state(task, steps_per_epoch=1,
+                                       ema=trainer.ema_decay > 0.0)
     for epoch in range(int(cfg.train.num_epochs)):
         trainer.epoch = epoch
         trainer._update_epoch_schedules()
@@ -111,7 +121,7 @@ def main(argv=None) -> int:
 
         def step():
             return superstep(task, trainer.state, batch, trainer.disc_freq,
-                             trainer.gen_freq, accum)
+                             trainer.gen_freq, accum, trainer.ema_decay)
         for _ in range(WARMUP):
             step()
         torch.cuda.synchronize()
@@ -133,12 +143,15 @@ def main(argv=None) -> int:
         by_kind, by_name, busy_ms, n_kernels = device_time(prof)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]
         print(json.dumps({
-            "epoch": epoch, "resolution": task.training_resolution,
+            "epoch": epoch, "resolution": getattr(
+                task, "training_resolution", int(cfg.train.img_size)),
             "batch": trainer.current_batch_size, "accum": accum,
             "images_per_sec": images / dt,
             "superstep_ms": dt * 1e3 / args.steps,
             "traced_supersteps": TRACED, "window_ms": window_ms,
             "device_busy_share": busy_ms / window_ms,
+            "busy_ms_per_superstep": busy_ms / TRACED,
+            "busy_share_untraced": busy_ms / TRACED / (dt * 1e3 / args.steps),
             "kernels": n_kernels,
             "device_ms_by_kind": dict(sorted(by_kind.items(),
                                              key=lambda kv: -kv[1])),

@@ -1,7 +1,8 @@
 """The port's CLI, run_network_torch.py, at small widths on the CPU: in a
-subprocess it trains HoloGAN and π-GAN through the JAX package's conf tree
-and loads no JAX module; in-process it refuses what it cannot run with a
-clear message."""
+subprocess it trains HoloGAN, π-GAN and the 2D families through the JAX
+package's conf tree (dc_gan with a checkpoint and a resume from it) and
+loads no JAX module; in-process it refuses what it cannot run with a clear
+message."""
 import re
 import subprocess
 import sys
@@ -28,6 +29,13 @@ PIGAN_SMALL = ["+expt=pigan", "machine=local", "dataset=synthetic",
                "variable_batch_size.batch_sizes=[4,2,2]",
                "resolution_annealing.update_epochs=[1,2]",
                "train.num_epochs=3", "dataset.n=16"]
+#: the 2D families at tiny widths, under the bf16 policy (precision 16)
+SMALL_2D = ["dataset=synthetic", "calc_fid=False", "~figures",
+            "train.img_size=16", "train.batch_size=4",
+            "train.features_disc=4", "train.features_gen=4",
+            "model.noise_dim=8", "generator.nfilter=4",
+            "generator.nfilter_max=8", "discriminator.nfilter=4",
+            "discriminator.nfilter_max=8", "dataset.n=48"]
 FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax",
            "lightning_gan_zoo_tpu")
 
@@ -85,16 +93,64 @@ def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
     (["calc_fid=True"], "calc_fid"),
-    (["save_ckpts=True"], "save_ckpts"),
-    (["+expt=dc_gan"], "not yet ported"),
+    (["eval_only=true"], "eval_only"),
+    (["+expt=anigan"], "not yet ported"),
     (["num_sp=2"], "num_sp"),
-    (["+train.penalty_precision=16"], "penalty_precision"),
+    (["save_ckpts_async=true"], "save_ckpts_async"),
 ])
 def test_cli_refuses_unported(extra, message, tmp_path, capsys):
     rc = run_network_torch.main(SMALL + extra + [f"output_root={tmp_path}",
                                                  "--device", "cpu"])
     assert rc != 0
     assert message in capsys.readouterr().err
+
+
+def test_cli_refuses_figure_callbacks(tmp_path, capsys):
+    rc = run_network_torch.main([a for a in SMALL if a != "~figures"]
+                                + [f"output_root={tmp_path}",
+                                   "--device", "cpu"])
+    assert rc != 0
+    assert "figure callbacks" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("expt,keys", [
+    ("wgan", ("d_loss", "g_loss")),
+    ("wgan_gp", ("d_loss", "gp", "g_loss")),
+    ("gan_stability_r1", ("d_loss", "r1", "g_loss"))])
+def test_cli_trains_2d_family_without_jax(expt, keys, tmp_path):
+    out = _run_cli([f"+expt={expt}", *SMALL_2D, "train.num_epochs=1",
+                    "save_ckpts=False", f"output_root={tmp_path}",
+                    "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    line = re.search(r"^epoch 0 \[.*\] (.*)$", out.stdout, re.M)
+    assert line, out.stdout
+    for k in keys + ("images_per_sec",):
+        assert re.search(rf"\b{k}=-?\d", line.group(1)), line.group(1)
+    assert "FOREIGN []" in out.stdout
+
+
+def test_cli_dc_gan_checkpoints_and_resumes_without_jax(tmp_path):
+    """Two epochs with save_ckpts=True leave one checkpoint, model_epoch-1;
+    a second run with train.ckpt_dir resumes there and trains epoch 2."""
+    args = ["+expt=dc_gan", *SMALL_2D, "train.ema_decay=0.999",
+            f"output_root={tmp_path}", "--device", "cpu"]
+    first = _run_cli(args + ["train.num_epochs=2", "save_ckpts=True",
+                             "version=first"])
+    assert first.returncode == 0, first.stderr
+    ckpts = tmp_path / "dc_gan" / "first" / "ckpts"
+    assert [p.name for p in ckpts.iterdir()] == ["model_epoch-1"]
+    second = _run_cli(args + ["train.num_epochs=3", f"train.ckpt_dir={ckpts}",
+                              "version=second"])
+    assert second.returncode == 0, second.stderr
+    assert f"Resuming from {ckpts / 'model_epoch-1'} at epoch 2, step 24" \
+        in second.stdout
+    epochs = re.findall(r"^epoch (\d) \[.*\] (.*)$", second.stdout, re.M)
+    assert [e for e, _ in epochs] == ["2"], second.stdout
+    for k in ("d_loss", "g_loss"):
+        assert re.search(rf"\b{k}=-?\d", epochs[0][1])
+    assert "FOREIGN []" in first.stdout and "FOREIGN []" in second.stdout
+    assert [p.name for p in (tmp_path / "dc_gan" / "second" / "ckpts"
+                             ).iterdir()] == ["model_epoch-2"]
 
 
 def test_cli_device_cuda_without_card_fails(tmp_path, capsys):

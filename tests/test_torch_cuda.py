@@ -9,11 +9,13 @@ import pytest
 import torch
 
 from lightning_gan_zoo_tpu_torch.models import hologan
+from lightning_gan_zoo_tpu_torch.models.layers import BatchNorm2d
 from lightning_gan_zoo_tpu_torch.nerf.siren import SirenNet
 from lightning_gan_zoo_tpu_torch.ops import grid_sample
 from lightning_gan_zoo_tpu_torch.ops import siren_trunk as pt
 from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
 from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+from lightning_gan_zoo_tpu_torch.runtime.optim import RMSprop
 
 pytestmark = pytest.mark.cuda
 
@@ -131,3 +133,47 @@ def test_sirennet_kernel_refuses_a_width_it_cannot_take(gen):
     net = SirenNet(3, 96, 96, 2, bf16=True).cuda()
     with pytest.raises(ValueError, match="dim_hidden"):
         net(torch.randn(1, 10, 3, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_batch_norm_under_bf16_autocast_matches_f32(gen, train):
+    """The flax-semantics BatchNorm on the card under the bf16 policy
+    against its float32 self: outputs within 2 bf16 steps of their scale,
+    and the running statistics (reduced in float32 from the bf16 input)
+    within one bf16 rounding of the input."""
+    x = torch.randn(8, 16, 12, 12, generator=gen, device="cuda") * 2 + 0.5
+    bn32, bn16 = BatchNorm2d(16).cuda(), BatchNorm2d(16).cuda()
+    with torch.no_grad():
+        for bn in (bn32, bn16):
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 16))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, 16))
+            bn.running_var.fill_(2.0)
+            bn.train(train)
+        want = bn32(x)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = bn16(x.to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    scale = float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= 2 * 2.0 ** -8 * scale
+    for name in ("running_mean", "running_var"):
+        a, b = getattr(bn16, name), getattr(bn32, name)
+        assert a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 2.0 ** -8 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_rmsprop_on_the_card_matches_the_cpu(gen, momentum):
+    """The optax-rule RMSprop on CUDA tensors against the same steps on the
+    CPU, at gradients near 1e-3: within a few float32 steps."""
+    p0 = torch.randn(3, 257, generator=gen, device="cuda")
+    grads = [torch.randn(3, 257, generator=gen, device="cuda") * 1e-3
+             for _ in range(6)]
+    out = []
+    for dev in ("cuda", "cpu"):
+        p = torch.nn.Parameter(p0.to(dev).clone())
+        opt = RMSprop([p], lr=1e-2, momentum=momentum)
+        for g in grads:
+            p.grad = g.to(dev)
+            opt.step()
+        out.append(p.detach().cpu())
+    torch.testing.assert_close(out[0], out[1], rtol=1e-6, atol=1e-6)
