@@ -13,15 +13,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ragged shape (N not a multiple of the block, C=3) and with out-of-range
      points; forward within 1e-5 absolute, backward within 1e-4 of max|ref|
      (the backward sums with atomics, so its order varies); then their
-     timing, kernel against plain: device time by CUDA events, median of
-     20 after 5 warm-ups, at the HoloGAN shapes;
+     timing, kernel against plain and against F.grid_sample (one library
+     call that computes the same function; the port never calls it):
+     device time by CUDA events, median of 20 after 5 warm-ups, at the
+     HoloGAN shapes;
   4. the SIREN trunk kernels against their plain version under the bf16
      policy, at π-GAN's shape (B=128, M=8192 fine points, H=256, 7 layers,
      6 FiLM'd) and at a ragged, unfilmed shape (M=999, γ=1, β=0); forward
      within 2⁻⁸ absolute, every gradient group within 0.01 of its max|ref|
      (tighter than the JAX tests' 0.04 and 0.03: the kernels round where
      the plain version rounds); then forward, backward and forward + backward
-     through the autograd function timed against plain at π-GAN's shape;
+     through the autograd function timed against plain at π-GAN's shape,
+     and the backward's device time split by the kernels it launches
+     (torch.profiler);
   5. the HoloGAN main path: run_network_torch.main() trains HoloGAN at the
      config's full width (G in_planes 64, D out_planes 64, noise 128, batch
      32, 64 px, bf16) for 4 supersteps on synthetic data; the losses must be
@@ -54,7 +58,10 @@ configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
 The last lines are the card's name and power limit, a JSON line describing
-each kernel, and a JSON line {"ok": true, "device": {...}}.
+each kernel (launches on the main path and per superstep, error, time
+beside its plain version's and the library call's, and its bound from this
+run's shapes; lightning_gan_zoo_tpu_torch/utils/kernel_bench.py), and a
+JSON line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -74,6 +81,10 @@ sys.path.insert(0, str(REPO))
 
 FWD_ATOL = 1e-5
 BWD_RTOL = 1e-4
+#: F.grid_sample normalises the coordinates to [-1, 1] and back, which moves
+#: a sample by ~1e-5 at these magnitudes; a different function would be off
+#: by O(1)
+LIBRARY_ATOL = 1e-3
 SOURCE = "lightning_gan_zoo_tpu_torch/csrc/trilinear.cu"
 REPLACES = {"fwd": "lightning_gan_zoo_tpu/ops/pallas/trilinear.py:155",
             "bwd": "lightning_gan_zoo_tpu/ops/pallas/trilinear.py:181"}
@@ -88,8 +99,6 @@ TRUNK_SOURCE = "lightning_gan_zoo_tpu_torch/csrc/siren_trunk.cu"
 TRUNK_REPLACES = {
     "fwd": "lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py:220",
     "bwd": "lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py:271"}
-#: π-GAN's trunk at 16 px and batch 128: the fine pass's 256 rays × 32 points
-TRUNK_SLICE = dict(b=128, m=8192, h=256, layers=7, n_film=6)
 TRUNK_RAGGED = dict(b=3, m=999, h=256, layers=7, n_film=1, unfilmed=True)
 PIGAN_ARGV = ["+expt=pigan", "machine=small", "dataset=synthetic",
               "~figures", "resolution_annealing.update_epochs=[1,2]",
@@ -99,10 +108,6 @@ PIGAN_ARGV = ["+expt=pigan", "machine=small", "dataset=synthetic",
 #: one bf16 step (≤ 0.004), and the 256-wide heads and the raymarch average
 #: such flips (measured: 0.0)
 PIGAN_TWIN_ATOL = 0.01
-HOLOGAN_VIEWS = dict(elevation_low=70, elevation_high=110, azimuth_low=220,
-                     azimuth_high=320, scale_low=1, scale_high=1,
-                     transX_low=0, transX_high=0, transY_low=0,
-                     transY_high=0, transZ_low=0, transZ_high=0)
 
 
 def check(ok: bool, what: str):
@@ -145,17 +150,6 @@ def build():
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def slice_inputs(gen):
-    """HoloGAN's resample inputs: a (32,16,16,16,64) volume and the points
-    of 32 sampled views, warped as the generator warps them."""
-    import torch
-    from lightning_gan_zoo_tpu_torch.models import hologan
-    vox = torch.randn(32, 16, 16, 16, 64, generator=gen, device="cuda")
-    views = hologan.sample_view(gen, 32, HOLOGAN_VIEWS)
-    views[:, 3:] = torch.rand(32, 3, generator=gen, device="cuda") - 0.5
-    return vox, hologan.project_coords(views, 16, 16)
-
-
 def ragged_inputs(gen):
     """N = 1003 (not a multiple of the 64-point block), C = 3, points
     reaching 3 voxels outside the volume on every side, plus the clamp
@@ -194,31 +188,12 @@ def compare(name, vox, coords, gen):
     return fwd_err, bwd_err
 
 
-def median_ms(fn, warmup=5, reps=20) -> float:
-    """Median device time of ``fn`` in ms. Before each timed call the
-    device spins for ~5 ms, so the host has queued the whole call before
-    the device reaches the start event: the interval holds device time, not
-    the host's launch latency (which would swamp a 50 µs kernel)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(10_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
-
-
 def timings(vox, coords, gen):
     import torch
     from lightning_gan_zoo_tpu_torch.ops import grid_sample
     from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    t = kb.trilinear_times(vox, coords, gen)
     g = torch.randn(32, coords.shape[1], 64, generator=gen, device="cuda")
     vox_rg = vox.detach().clone().requires_grad_(True)
 
@@ -226,21 +201,20 @@ def timings(vox, coords, gen):
         return lambda: torch.autograd.grad(resample(vox_rg, coords), vox_rg,
                                            g)
 
-    t = {
-        "fwd": median_ms(lambda: kt.launch_forward(vox, coords)),
-        "fwd_plain": median_ms(
-            lambda: grid_sample.trilinear_resample(vox, coords)),
-        "bwd": median_ms(lambda: kt.launch_backward(coords, g, vox.shape)),
-        "bwd_plain": median_ms(lambda: grid_sample.trilinear_resample_vox_grad(
-            coords, g, vox.shape)),
-        "fwd_bwd": median_ms(fwd_bwd(kt.trilinear_resample)),
-        "fwd_bwd_plain": median_ms(fwd_bwd(grid_sample.trilinear_resample)),
-    }
+    t["fwd_bwd"] = kb.median_ms(fwd_bwd(kt.trilinear_resample))
+    t["fwd_bwd_plain"] = kb.median_ms(fwd_bwd(grid_sample.trilinear_resample))
     card = card_line()
     for k in ("fwd", "bwd", "fwd_bwd"):
+        lib = (f", F.grid_sample {t[k + '_library']:.4f} ms (max|err| "
+               f"against the kernel {t[k + '_library_err']:.2e})"
+               if k + "_library" in t else "")
         print(f"time {k}: kernel {t[k]:.4f} ms, plain {t[k + '_plain']:.4f} "
-              f"ms (device time, median of 20, B=32 16^3x64 N=4096; "
+              f"ms{lib} (device time, median of 20, B=32 16^3x64 N=4096; "
               f"{card})")
+    for k in ("fwd", "bwd"):   # the yardstick computes the same function
+        check(t[k + "_library_err"] <= LIBRARY_ATOL,
+              f"F.grid_sample disagrees with the trilinear {k} kernel: "
+              f"{t[k + '_library_err']}")
     return t
 
 
@@ -330,7 +304,8 @@ def hologan_main_path():
     cfg = trainer.cfg
 
     n_super = int(cfg.dataset.n) // (int(cfg.train.batch_size) * 3)
-    want = {"fwd": n_super * 3 + 1, "bwd": n_super * 2}  # 1:2 cycle + val
+    per_superstep = {"fwd": 3, "bwd": 2}  # the 1:2 D:G cycle
+    want = {"fwd": n_super * 3 + 1, "bwd": n_super * 2}  # + validation
     print(f"main path: {n_super} supersteps in {wall:.1f} s, kernel "
           f"launches {launches} (expected {want})")
     check(launches["fwd"] > 0 and launches["bwd"] > 0,
@@ -373,32 +348,14 @@ def hologan_main_path():
     print(f"trained G, f32, kernel vs plain resample: max|err| {err:.3e} "
           f"(limit 1e-4)")
     check(err <= 1e-4, f"G through the kernel disagrees with plain: {err}")
-    return launches
-
-
-def trunk_inputs(gen, b, m, h, layers, n_film, unfilmed=False):
-    """SIREN-init weights on the card, x ~ N(0, 0.25), γ ~ 1 + N(0, 0.01),
-    β ~ N(0, 0.01) (γ = 1, β = 0 when ``unfilmed``), a bf16 cotangent."""
-    import torch
-    d = dict(device="cuda")
-    bound = (6 / h) ** 0.5
-    x = torch.randn(b, m, 3, generator=gen, **d) * 0.5
-    w0k = (torch.rand(3, h, generator=gen, **d) * 2 - 1) / 3
-    wmid = (torch.rand(layers - 1, h, h, generator=gen, **d) * 2 - 1) * bound
-    bs = (torch.rand(layers, h, generator=gen, **d) * 2 - 1) * bound
-    if unfilmed:
-        g, bt = torch.ones(b, 1, h, **d), torch.zeros(b, 1, h, **d)
-    else:
-        g = torch.randn(b, n_film, h, generator=gen, **d) * 0.1 + 1
-        bt = torch.randn(b, n_film, h, generator=gen, **d) * 0.1
-    dy = torch.randn(b, m, h, generator=gen, **d).to(torch.bfloat16)
-    return (x, w0k, wmid, bs, g, bt), dy, (30.0,) + (1.0,) * (layers - 1)
+    return launches, per_superstep
 
 
 def trunk_compare(name, gen, shape):
     import torch
     from lightning_gan_zoo_tpu_torch.ops import siren_trunk as pt
     from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
+    from lightning_gan_zoo_tpu_torch.utils.kernel_bench import trunk_inputs
     args, dy, w0s = trunk_inputs(gen, **shape)
     fwd_err = float((st.launch_forward(*args, w0s).float()
                      - pt.trunk_forward(*args, w0s).float()).abs().max())
@@ -420,31 +377,23 @@ def trunk_compare(name, gen, shape):
 
 
 def trunk_timings(gen):
-    import torch
-    from lightning_gan_zoo_tpu_torch.ops import siren_trunk as pt
-    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
-    args, dy, w0s = trunk_inputs(gen, **TRUNK_SLICE)
-    leaves = [a.detach().clone().requires_grad_(True) for a in args]
-
-    def kernel_fwd_bwd():
-        y = st.siren_trunk(*leaves, w0s)
-        torch.autograd.grad(y, leaves, dy)
-
-    def plain_fwd_bwd():
-        pt.trunk_forward(*args, w0s)
-        pt.trunk_backward(*args, dy, w0s)
-
-    t = {"fwd": median_ms(lambda: st.launch_forward(*args, w0s)),
-         "fwd_plain": median_ms(lambda: pt.trunk_forward(*args, w0s)),
-         "bwd": median_ms(lambda: st.launch_backward(*args, dy, w0s)),
-         "bwd_plain": median_ms(lambda: pt.trunk_backward(*args, dy, w0s)),
-         "fwd_bwd": median_ms(kernel_fwd_bwd),
-         "fwd_bwd_plain": median_ms(plain_fwd_bwd)}
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    args, dy, w0s = kb.trunk_inputs(gen, **kb.TRUNK_SLICE)
+    t = kb.trunk_times(args, dy, w0s)
     card = card_line()
     for k in ("fwd", "bwd", "fwd_bwd"):
         print(f"trunk time {k}: kernel {t[k]:.4f} ms, plain "
               f"{t[k + '_plain']:.4f} ms (device time, median of 20, "
-              f"{TRUNK_SLICE}; {card})")
+              f"{kb.TRUNK_SLICE}; {card})")
+    split = kb.trunk_backward_split(args, dy, w0s)
+    if split is None:
+        print("trunk backward split: the profiler recorded no device time "
+              "(not measured)")
+    else:
+        print("trunk backward split, device ms per call (torch.profiler, 5 "
+              "calls): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f" ({card})")
+    t["bwd_split"] = split
     return t
 
 
@@ -486,6 +435,8 @@ def pigan_main_path():
     # backward (the coarse pass runs without grad); validation: 2 per chunk
     want = {"fwd": 2 * (d_micro + g_micro) + 2 * val_chunks * n_val,
             "bwd": g_micro}
+    accum = plan[0][1]    # a superstep at 16 px, the trunk timings' shape
+    per_superstep = {"fwd": 2 * (df + gf) * accum, "bwd": gf * accum}
     print(f"pigan main path: plan (batch, accum, fold, supersteps) per "
           f"epoch {plan}; {d_micro} D and {g_micro} G micro-steps in "
           f"{wall:.1f} s; trunk launches {launches} (expected {want})")
@@ -538,7 +489,7 @@ def pigan_main_path():
           f"{err:.3e} (limit {PIGAN_TWIN_ATOL:g})")
     check(err <= PIGAN_TWIN_ATOL,
           f"G through the trunk kernels disagrees with plain: {err}")
-    return launches
+    return launches, per_superstep
 
 # ------------------------------------------------------------ 2D families
 #: the smoke's MNIST-format data: procedural digits, written as idx files
@@ -756,18 +707,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build()
     gen = torch.Generator("cuda").manual_seed(0)
-    slice_vox, slice_pts = slice_inputs(gen)
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    slice_vox, slice_pts = kb.trilinear_inputs(gen)
     fwd_err, bwd_err = compare("slice", slice_vox, slice_pts, gen)
     r_fwd, r_bwd = compare("ragged", *ragged_inputs(gen), gen)
     t = timings(slice_vox, slice_pts, gen)
+    tri_bound = kb.trilinear_bound(slice_vox.shape, slice_pts.shape[1])
     del slice_vox, slice_pts
-    tr_errs = [trunk_compare("slice", gen, TRUNK_SLICE),
+    tr_errs = [trunk_compare("slice", gen, kb.TRUNK_SLICE),
                trunk_compare("ragged", gen, TRUNK_RAGGED)]
     tt = trunk_timings(gen)
     torch.cuda.empty_cache()
-    tri_launches = hologan_main_path()
+    tri_launches, tri_per = hologan_main_path()
     torch.cuda.empty_cache()
-    trunk_launches = pigan_main_path()
+    trunk_launches, trunk_per = pigan_main_path()
     for phase in (dcgan_main_path, wgan_main_path, wgan_gp_main_path,
                   r1_main_path):
         torch.cuda.empty_cache()
@@ -776,17 +729,24 @@ def main() -> int:
     kernels = [
         {"name": f"trilinear_{k}", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": tri_launches[k],
-         "max_abs_err": max(e), "ms": t[k], "plain_ms": t[k + "_plain"]}
+         "launches_per_superstep": tri_per[k], "max_abs_err": max(e),
+         "ms": t[k], "plain_ms": t[k + "_plain"], **tri_bound,
+         "library_ms": t[k + "_library"]}
         for k, e in (("fwd", (fwd_err, r_fwd)), ("bwd", (bwd_err, r_bwd)))]
+    trunk_shape = {k: kb.TRUNK_SLICE[k] for k in ("b", "m", "h", "layers")}
     kernels += [
         {"name": f"siren_trunk_{k}", "route": "cuda", "source": TRUNK_SOURCE,
          "replaces": TRUNK_REPLACES[k], "launches": trunk_launches[k],
+         "launches_per_superstep": trunk_per[k],
          "max_abs_err": max(e[i] for e in tr_errs), "ms": tt[k],
-         "plain_ms": tt[k + "_plain"]}
+         "plain_ms": tt[k + "_plain"],
+         **kb.trunk_bound(**trunk_shape, backward=k == "bwd"),
+         "library_ms": None}
         for i, k in enumerate(("fwd", "bwd"))]
     # the backward's groups are sums over a million rows; its bound is
     # relative to each group's largest value
     kernels[-1]["max_rel_err"] = max(e[2] for e in tr_errs)
+    kernels[-1]["split_ms"] = tt["bwd_split"]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card_line())

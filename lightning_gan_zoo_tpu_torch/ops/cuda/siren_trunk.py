@@ -3,12 +3,15 @@
 
 Replaces lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py::siren_trunk
 (forward ``_trunk_fwd_impl``, the pl.pallas_call at :220; backward
-``_trunk_bwd_impl``, the pl.pallas_call at :271). What bounds the kernels on
-this card and what their design does about it (a 32-row tile kept on chip
-across all layers, weights streamed through shared memory from L2, the
-backward's per-layer stash spilled to device scratch, the weight gradient as
-a split-K product, partial sums reduced in a fixed order) is set out in the
-source.
+``_trunk_bwd_impl``, the pl.pallas_call at :271). The forward keeps a 32-row
+tile on chip across all layers and streams the weights through shared memory
+from L2 (WMMA products). The backward was bound by its synchronous weight
+loads, its 32-row tiles and its elementwise chains; it now multiplies 64-row
+tiles with ``wgmma``, fed by a ring of weight chunks that ``cp.async.bulk``
+copies fill, for which ``pack_weights`` lays out W and Wᵀ once per call. It
+spills the per-layer stash to device scratch in 8-row slabs, the operand
+layout of the weight gradient's split-K ``wgmma`` GEMM, and reduces every
+partial sum in a fixed order. The source sets all of this out.
 
 ``siren_trunk`` is a ``torch.autograd.Function``:
   * a CUDA tensor launches the kernel or raises — there is no fallback;
@@ -39,10 +42,14 @@ BWD_LAUNCHES = 0
 SUPPORTED_H = (64, 128, 256)
 MAX_LAYERS = 16
 MAX_CIN = 4
-#: rows of one sample that one backward block walks (8 tiles of 32)
+#: rows of one sample that one backward block walks (a multiple of 64)
 ROWS_PER_BLOCK = 256
-#: split-K blocks wanted for the weight gradient (~4 waves of 132 SMs)
-_DW_BLOCKS = 528
+#: the weight gradient's k-step: the stash rows of each sample are padded
+#: to a multiple of it
+STEP_ROWS = 64
+#: split-K blocks wanted for the weight gradient (2 waves of 132 SMs, one
+#: block per SM)
+_DW_BLOCKS = 264
 _MAX_GRID_Y = 65535
 
 
@@ -93,16 +100,44 @@ def _check_tensor(name: str, t: torch.Tensor, dtype, device):
         raise ValueError(f"siren trunk kernel: {name} must be contiguous")
 
 
-def _kernel_inputs(x, w0k, wmid, bs, gammas, betas):
-    """Type and device checks; the bf16 copy of the middle weights (the
-    JAX kernel also casts them inside its call)."""
+def _check_inputs(x, w0k, wmid, bs, gammas, betas):
     if x.device.type != "cuda":
         raise ValueError(f"siren trunk kernel needs a CUDA tensor, got "
                          f"{x.device}")
     for name, t in (("x", x), ("w0k", w0k), ("wmid", wmid), ("bs", bs),
                     ("gammas", gammas), ("betas", betas)):
         _check_tensor(name, t, torch.float32, x.device)
+
+
+def _kernel_inputs(x, w0k, wmid, bs, gammas, betas):
+    """Type and device checks; the bf16 copy of the middle weights the
+    forward reads (the JAX kernel also casts them inside its call)."""
+    _check_inputs(x, w0k, wmid, bs, gammas, betas)
     return wmid.to(torch.bfloat16).contiguous()
+
+
+def pack_weights(wmid: torch.Tensor) -> torch.Tensor:
+    """The middle weights (L−1, H, H) (in, out) as the backward's ring reads
+    them: 2·(L−1) bf16 matrices, first each W as the recompute multiplies by
+    it, then each W as the walk back multiplies by its transpose. A matrix
+    is the B operand (N × K: b[n][k]) of its product, cut into 64-row chunks
+    of K, each [k // 8 % 8][n][k % 8]: 8×8 core matrices with K innermost,
+    the K-major layout wgmma reads, so one chunk is one contiguous copy."""
+    n, h, _ = wmid.shape
+
+    def chunks(b):  # (n, N, K) → (n, K/64, 8, N, 8)
+        return b.reshape(n, h, h // 64, 8, 8).permute(0, 2, 3, 1, 4)
+
+    return torch.cat([chunks(wmid.transpose(1, 2)), chunks(wmid)]
+                     ).to(torch.bfloat16).contiguous()
+
+
+def dw_splits(n_steps: int, h: int, L: int) -> int:
+    """Blocks that split the weight gradient's n_steps k-steps of each
+    (layer, row tile), none of them empty."""
+    tiles = max(1, h // 128) * (L - 1)
+    per = -(-n_steps // max(1, min(n_steps, -(-_DW_BLOCKS // tiles))))
+    return -(-n_steps // per)
 
 
 def _w0s_arg(w0s: Sequence[float]):
@@ -143,20 +178,20 @@ def launch_backward(x, w0k, wmid, bs, gammas, betas, dy, w0s
     b, m, cin, h, L, n_film = check_shapes(x, w0k, wmid, bs, gammas, betas,
                                            w0s)
     _check_kernel_shape(b, cin, h, L)
-    wm = _kernel_inputs(x, w0k, wmid, bs, gammas, betas)
+    _check_inputs(x, w0k, wmid, bs, gammas, betas)
+    wpack = pack_weights(wmid)
     _check_tensor("dy", dy, torch.bfloat16, x.device)
     if tuple(dy.shape) != (b, m, h):
         raise ValueError(f"siren trunk kernel: dy shape {tuple(dy.shape)}, "
                          f"expected {(b, m, h)}")
-    if b * m == 0 or b * m >= 2 ** 31:
+    if m == 0 or b * -(-m // STEP_ROWS) * STEP_ROWS >= 2 ** 31:
         raise ValueError(f"siren trunk kernel backward: {b * m} rows")
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    rows = b * m
+    rows = b * -(-m // STEP_ROWS) * STEP_ROWS   # stash rows, padded
     n_chunks = -(-m // ROWS_PER_BLOCK)
     nslot = L + 2 * n_film + cin
-    tiles = (h // min(h, 128)) ** 2 * (L - 1)
-    n_split = max(1, min(-(-rows // 32), -(-_DW_BLOCKS // tiles)))
+    n_split = dw_splits(rows // STEP_ROWS, h, L)
     dx = torch.empty((b, m, cin), **f32)
     dw0 = torch.empty((cin, h), **f32)
     dwm = torch.empty((L - 1, h, h), **f32)
@@ -170,7 +205,7 @@ def launch_backward(x, w0k, wmid, bs, gammas, betas, dy, w0s
     ps = torch.empty((b, nslot, h), **f32)
     with torch.cuda.device(dev):
         err = load_library().lgzt_siren_trunk_bwd(
-            x.data_ptr(), w0k.data_ptr(), wm.data_ptr(), bs.data_ptr(),
+            x.data_ptr(), w0k.data_ptr(), wpack.data_ptr(), bs.data_ptr(),
             gammas.data_ptr(), betas.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), dw0.data_ptr(), dwm.data_ptr(), db.data_ptr(),
             dg.data_ptr(), dbt.data_ptr(), hstash.data_ptr(),

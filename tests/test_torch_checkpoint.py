@@ -22,6 +22,10 @@ from lightning_gan_zoo_tpu_torch.config import compose
 from lightning_gan_zoo_tpu_torch.runtime import loop
 from lightning_gan_zoo_tpu_torch.runtime.checkpoint import CheckpointManager
 
+#: the suite runs several files at once (pytest-xdist workers) on a few
+#: cores: two torch threads per worker keep them off each other's cores
+torch.set_num_threads(2)
+
 SMALL_2D = ["dataset=synthetic", "calc_fid=False", "~figures",
             "precision=32", "train.img_size=16", "train.batch_size=4",
             "train.features_disc=4", "train.features_gen=4",

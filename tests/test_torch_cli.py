@@ -3,6 +3,7 @@ subprocess it trains HoloGAN, π-GAN and the 2D families through the JAX
 package's conf tree (dc_gan with a checkpoint and a resume from it) and
 loads no JAX module; in-process it refuses what it cannot run with a clear
 message."""
+import os
 import re
 import subprocess
 import sys
@@ -15,6 +16,10 @@ import run_network_torch
 from tests.conftest import CONF_DIR, REPO_ROOT
 from lightning_gan_zoo_tpu.config import compose as jax_compose
 from lightning_gan_zoo_tpu_torch.config import compose
+
+#: the suite runs several files at once (pytest-xdist workers) on a few
+#: cores: two torch threads per worker keep them off each other's cores
+torch.set_num_threads(2)
 
 SMALL = ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
          "save_ckpts=False", "~figures", "precision=32",
@@ -49,8 +54,10 @@ def _run_cli(args):
         f"rc = r.main({args!r}); "
         f"print('FOREIGN', sorted({{m.split('.')[0] for m in sys.modules}}"
         f" & set({FOREIGN!r}))); sys.exit(rc)")
+    env = {**os.environ, "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
     return subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
 
 
 def test_cli_trains_hologan_without_jax(tmp_path):

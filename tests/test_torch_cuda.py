@@ -95,7 +95,13 @@ def _trunk_inputs(gen, b, m, h, layers, n_film, unfilmed=False):
 
 @pytest.mark.parametrize("b,m,h,layers,n_film,unfilmed", [
     (2, 300, 128, 3, 2, False), (3, 1000, 256, 7, 6, False),
-    (3, 999, 256, 7, 1, True), (2, 77, 64, 4, 4, False)])
+    (3, 999, 256, 7, 1, True), (2, 77, 64, 4, 4, False),
+    # the backward's 64-row tiles and k-steps: M one short of and one past
+    # a tile, a single sample, every width
+    (1, 63, 64, 2, 1, False), (1, 65, 128, 5, 3, False),
+    (1, 1000, 256, 7, 6, False), (2, 65, 256, 3, 1, True),
+    # 27 k-steps over 14 dW blocks of 2: the last block takes one
+    (3, 560, 256, 7, 6, False)])
 def test_trunk_kernels_match_plain(gen, b, m, h, layers, n_film, unfilmed):
     """Forward within 2⁻⁸ absolute and every gradient group within 0.01 of
     its max |ref| (the JAX tests allow 0.04 and 0.03; these kernels round

@@ -50,6 +50,10 @@ from lightning_gan_zoo_tpu_torch.runtime.optim import RMSprop, step_lr
 from lightning_gan_zoo_tpu_torch.runtime.state import create_train_state
 from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
 
+#: the suite runs several files at once (pytest-xdist workers) on a few
+#: cores: two torch threads per worker keep them off each other's cores
+torch.set_num_threads(2)
+
 B = 4
 SMALL = ["dataset=synthetic", "precision=32", "calc_fid=False", "~figures",
          "train.batch_size=4", "train.features_disc=4",

@@ -32,6 +32,10 @@ from lightning_gan_zoo_tpu_torch.runtime.optim import pigan_decay_schedule
 from lightning_gan_zoo_tpu_torch.runtime.state import create_train_state
 from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
 
+#: the suite runs several files at once (pytest-xdist workers) on a few
+#: cores: two torch threads per worker keep them off each other's cores
+torch.set_num_threads(2)
+
 PIGAN_TINY = ["+expt=pigan", "machine=local", "dataset=synthetic",
               "model.noise_dim=16", "nerf.siren_dim_hidden=32",
               "nerf.siren_num_layers=2", "nerf.n_pts_per_ray=4",

@@ -191,3 +191,56 @@ def test_kernel_shape_limits_raise(h, layers, cin, message):
             torch.zeros(layers, h), torch.ones(2, 1, h), torch.zeros(2, 1, h))
     with pytest.raises(ValueError, match=message):
         ct.launch_forward(*args, (30.0,) + (1.0,) * (layers - 1))
+
+
+def _core_matrix_operand(chunks, h):
+    """The (N, K) matrix a K-major wgmma operand holds, read back from its
+    64-row chunks of K the way the kernel's descriptors address them: core
+    matrices of 8 rows × 8 K-values (16 bytes per row), 128 bytes apart
+    along N (the stride byte offset) and h·16 bytes apart along K (the
+    leading byte offset)."""
+    flat = chunks.reshape(-1)
+    n = np.arange(h)[:, None]
+    k = np.arange(h)[None, :]
+    idx = (k // 64) * 64 * h + (k % 64 // 8) * (h * 16 // 2) \
+        + (n // 8) * (128 // 2) + (n % 8) * 8 + k % 8
+    return flat[idx]
+
+
+@pytest.mark.parametrize("h,layers", [(64, 2), (128, 3), (256, 4)])
+def test_pack_weights_is_what_the_ring_feeds_wgmma(h, layers):
+    """The backward's packed weights: matrix j < L−1 is the recompute
+    product's B operand (b[n][k] = W_j[k][n]), matrix L−1+j the walk back's
+    (b[n][k] = W_j[n][k]), each W rounded to bf16 as the plain version
+    rounds it."""
+    rng = np.random.default_rng(h)
+    wmid = torch.from_numpy(
+        rng.uniform(-1, 1, (layers - 1, h, h)).astype(np.float32))
+    packed = ct.pack_weights(wmid)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.numel() == 2 * (layers - 1) * h * h
+    mats = packed.float().reshape(2 * (layers - 1), -1).numpy()
+    w16 = wmid.to(torch.bfloat16).float().numpy()
+    for j in range(layers - 1):
+        np.testing.assert_array_equal(_core_matrix_operand(mats[j], h),
+                                      w16[j].T)
+        np.testing.assert_array_equal(
+            _core_matrix_operand(mats[layers - 1 + j], h), w16[j])
+
+
+@pytest.mark.parametrize("b,m,h,layers", [
+    (128, 8192, 256, 7), (3, 560, 256, 7), (1, 63, 64, 2), (2, 65, 128, 5),
+    (5, 1000, 128, 3)])
+def test_dw_splits_cover_every_k_step_once(b, m, h, layers):
+    """The weight gradient's split-K: every one of the n_steps 64-row
+    k-steps falls in exactly one block's range, no block's range is empty,
+    and the blocks fill about two waves of 132 SMs, not more."""
+    n_steps = b * -(-m // ct.STEP_ROWS)
+    splits = ct.dw_splits(n_steps, h, layers)
+    per = -(-n_steps // splits)     # as the launch computes it
+    ranges = [range(s * per, min(n_steps, (s + 1) * per))
+              for s in range(splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert sorted(i for r in ranges for i in r) == list(range(n_steps))
+    tiles = max(1, h // 128) * (layers - 1)
+    assert splits * tiles <= 264 + tiles

@@ -40,6 +40,10 @@ from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
 
 import torch
 
+#: the suite runs several files at once (pytest-xdist workers) on a few
+#: cores: two torch threads per worker keep them off each other's cores
+torch.set_num_threads(2)
+
 OVERRIDES = [
     "+expt=hologan", "dataset=synthetic", "precision=32", "calc_fid=False",
     "save_ckpts=False", "~figures", "generator.in_planes=4",

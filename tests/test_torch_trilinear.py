@@ -88,3 +88,43 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kt.launch_backward(p, torch.zeros(1, p.shape[1], 4), v.shape)
 
+
+
+@pytest.mark.parametrize("shape", [dict(), dict(b=1, s=4, c=3, n=37, seed=1)])
+def test_grid_sample_yardstick_is_the_same_map(shape):
+    """The library call the card timings hold the kernel against
+    (utils/kernel_bench.py: F.grid_sample, border, align_corners, on the
+    normalised grid; aten's volume gradient) computes the JAX package's
+    border-clamped resample and its volume gradient, points outside the
+    volume included: within 1e-5 of the JAX gather (the normalisation
+    rounds the coordinates)."""
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    vox, pts = _inputs(**shape)
+    v, p = torch.from_numpy(vox), torch.from_numpy(pts)
+    vol, grid = kb.grid_sample_inputs(v, p)
+    got = kb.grid_sample_fwd(vol, grid)[:, :, 0, 0].permute(0, 2, 1)
+    want = np.asarray(jax_resample(jnp.asarray(vox), jnp.asarray(pts)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    g = np.random.default_rng(7).normal(size=want.shape).astype(np.float32)
+    g_lib = torch.from_numpy(g).permute(0, 2, 1)[:, :, None, None]
+    dvol = kb.grid_sample_bwd(vol, grid, g_lib.contiguous())
+    _, vjp = jax.vjp(lambda x: jax_resample(x, jnp.asarray(pts)),
+                     jnp.asarray(vox))
+    np.testing.assert_allclose(dvol.permute(0, 2, 3, 4, 1).numpy(),
+                               np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-5)
+
+
+def test_kernel_bounds_at_the_main_paths_shapes():
+    """The bounds the card run reports: the trilinear passes move 68.7 MB
+    (0.0205 ms at 3.35 TB/s); the trunk does 0.82 TFLOP forward and 3×
+    that backward at π-GAN's 16-px shape (0.834 and 2.501 ms at 989
+    TFLOP/s)."""
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    tri = kb.trilinear_bound((32, 16, 16, 16, 64), 4096)
+    assert tri["bound_by"] == "bytes"
+    assert tri["bound_ms"] == pytest.approx(0.0205, abs=1e-4)
+    fwd = kb.trunk_bound(128, 8192, 256, 7)
+    bwd = kb.trunk_bound(128, 8192, 256, 7, backward=True)
+    assert fwd["bound_by"] == bwd["bound_by"] == "operations"
+    assert fwd["bound_ms"] == pytest.approx(0.8338, abs=1e-4)
+    assert bwd["bound_ms"] == pytest.approx(2.5014, abs=1e-4)
