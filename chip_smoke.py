@@ -12,26 +12,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      HoloGAN shapes (B=32, 16³×64 volume, 4096 view-warped points), at a
      ragged shape (N not a multiple of the block, C=3) and with out-of-range
      points; forward within 1e-5 absolute, backward within 1e-4 of max|ref|
-     (the backward sums with atomics, so its order varies); then their
-     timing, kernel against plain and against F.grid_sample (one library
-     call that computes the same function; the port never calls it):
-     device time by CUDA events, median of 20 after 5 warm-ups, at the
-     HoloGAN shapes;
+     (the plain version sums each voxel's terms in another order); the
+     backward bit-identical across two calls and to ordered_vox_grad (its
+     summation order in plain PyTorch); then their timing, kernel against
+     plain and against F.grid_sample (one library call that computes the
+     same function; the port never calls it): device time by CUDA events,
+     median of 20 after 5 warm-ups, at the HoloGAN shapes, and the
+     backward's device time split by the kernels it launches
+     (torch.profiler);
   4. the SIREN trunk kernels against their plain version under the bf16
      policy, at π-GAN's shape (B=128, M=8192 fine points, H=256, 7 layers,
      6 FiLM'd) and at a ragged, unfilmed shape (M=999, γ=1, β=0); forward
-     within 2⁻⁸ absolute, every gradient group within 0.01 of its max|ref|
-     (tighter than the JAX tests' 0.04 and 0.03: the kernels round where
-     the plain version rounds); then forward, backward and forward + backward
-     through the autograd function timed against plain at π-GAN's shape,
-     and the backward's device time split by the kernels it launches
-     (torch.profiler);
+     within 2⁻⁸ absolute (and the share of outputs that differ at all),
+     every gradient group within 0.01 of its max|ref| (tighter than the JAX
+     tests' 0.04 and 0.03: the kernels round where the plain version
+     rounds), both directions bit-identical across two calls; then
+     forward, backward and forward + backward through the autograd function
+     timed against plain at π-GAN's shape, and the backward's device time
+     split by the kernels it launches (torch.profiler);
   5. the HoloGAN main path: run_network_torch.main() trains HoloGAN at the
      config's full width (G in_planes 64, D out_planes 64, noise 128, batch
      32, 64 px, bf16) for 4 supersteps on synthetic data; the losses must be
      finite, every parameter on the card, and the trilinear launch counts
      exactly what the path implies; the trained generator's images through
-     the kernel must match its plain-resample twin;
+     the kernel must match its plain-resample twin; then one superstep at
+     that width, run twice from the same seed under the default cuDNN
+     settings, is compared bit for bit and the answer printed (not a
+     check: cuDNN may pick algorithms that sum in a varying order);
   6. the π-GAN main path: run_network_torch.main() trains π-GAN with its
      machine=small config (SIREN 256 × 6, noise 128, 16 + 16 points, D
      init_chan 64, bf16) through its three resolutions (16, 32, 64 px at
@@ -175,6 +182,8 @@ def compare(name, vox, coords, gen):
     g = torch.randn(ref.shape, generator=gen, device="cuda")
     dgot = kt.launch_backward(coords, g, vox.shape)
     dref = grid_sample.trilinear_resample_vox_grad(coords, g, vox.shape)
+    again = torch.equal(dgot, kt.launch_backward(coords, g, vox.shape))
+    ordered = torch.equal(dgot, kt.ordered_vox_grad(coords, g, vox.shape))
     torch.cuda.synchronize()
     fwd_err = float((got - ref).abs().max())
     bwd_err = float((dgot - dref).abs().max())
@@ -182,9 +191,12 @@ def compare(name, vox, coords, gen):
     print(f"{name}: vox {tuple(vox.shape)} points {coords.shape[1]}: "
           f"fwd max|err| {fwd_err:.3e} (limit {FWD_ATOL:g}), "
           f"bwd max|err| {bwd_err:.3e} = {bwd_rel:.3e} of max|ref| "
-          f"(limit {BWD_RTOL:g})")
+          f"(limit {BWD_RTOL:g}); bwd bit-identical across two calls: "
+          f"{again}, to ordered_vox_grad: {ordered}")
     check(fwd_err <= FWD_ATOL, f"{name} forward error {fwd_err}")
     check(bwd_rel <= BWD_RTOL, f"{name} backward error {bwd_rel}")
+    check(again, f"{name} backward differs between two calls")
+    check(ordered, f"{name} backward differs from ordered_vox_grad")
     return fwd_err, bwd_err
 
 
@@ -215,7 +227,19 @@ def timings(vox, coords, gen):
         check(t[k + "_library_err"] <= LIBRARY_ATOL,
               f"F.grid_sample disagrees with the trilinear {k} kernel: "
               f"{t[k + '_library_err']}")
+    t["bwd_split"] = kb.trilinear_backward_split(vox, coords, gen)
+    print_split("trilinear backward", t["bwd_split"], card)
     return t
+
+
+def print_split(what, split, card):
+    if split is None:
+        print(f"{what} split: the profiler recorded no device time (not "
+              f"measured)")
+    else:
+        print(f"{what} split, device ms per call (torch.profiler, 5 calls): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f" ({card})")
 
 
 class Tee(io.StringIO):
@@ -348,7 +372,40 @@ def hologan_main_path():
     print(f"trained G, f32, kernel vs plain resample: max|err| {err:.3e} "
           f"(limit 1e-4)")
     check(err <= 1e-4, f"G through the kernel disagrees with plain: {err}")
+    hologan_replay(cfg, trainer.logging_dir)
     return launches, per_superstep
+
+
+def hologan_replay(cfg, out_dir):
+    """One superstep at the config's width, twice, each from a task made
+    anew from the same seed and on the same batch, under the default cuDNN
+    settings: prints whether losses and parameters agree bit for bit."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.runtime.state import create_train_state
+    from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
+    df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
+    size = int(cfg.train.img_size)
+    images = torch.rand(df + gf, int(cfg.train.batch_size), 3, size, size,
+                        generator=torch.Generator("cuda").manual_seed(11),
+                        device="cuda") * 2 - 1
+    runs = []
+    for _ in range(2):
+        task = instantiate(cfg.model.lm, cfg, str(out_dir), device="cuda")
+        state = create_train_state(task, steps_per_epoch=4)
+        metrics = superstep(task, state, {"image": images}, df, gf)
+        params = [p.detach().clone() for net in (task.generator,
+                                                 task.discriminator)
+                  for p in net.parameters()]
+        runs.append(({k: float(v) for k, v in metrics.items()}, params))
+        del task, state
+    differ = sum(not torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    same = runs[0][0] == runs[1][0] and differ == 0
+    print(f"hologan superstep replay under the default cuDNN settings "
+          f"(benchmark {torch.backends.cudnn.benchmark}, deterministic "
+          f"{torch.backends.cudnn.deterministic}): bit-identical {same}; "
+          f"losses {runs[0][0]} vs {runs[1][0]}; {differ} of "
+          f"{len(runs[0][1])} parameter tensors differ")
 
 
 def trunk_compare(name, gen, shape):
@@ -357,9 +414,14 @@ def trunk_compare(name, gen, shape):
     from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
     from lightning_gan_zoo_tpu_torch.utils.kernel_bench import trunk_inputs
     args, dy, w0s = trunk_inputs(gen, **shape)
-    fwd_err = float((st.launch_forward(*args, w0s).float()
-                     - pt.trunk_forward(*args, w0s).float()).abs().max())
+    y = st.launch_forward(*args, w0s)
+    y_plain = pt.trunk_forward(*args, w0s)
+    fwd_err = float((y.float() - y_plain.float()).abs().max())
+    fwd_differ = float((y != y_plain).float().mean())
+    fwd_again = torch.equal(y, st.launch_forward(*args, w0s))
+    del y, y_plain
     got = st.launch_backward(*args, dy, w0s)
+    bwd_again = all(map(torch.equal, got, st.launch_backward(*args, dy, w0s)))
     want = pt.trunk_backward(*args, dy, w0s)
     torch.cuda.synchronize()
     groups = ("dx", "dW0", "dWmid", "db", "dgamma", "dbeta")
@@ -367,10 +429,14 @@ def trunk_compare(name, gen, shape):
            for n, g, w in zip(groups, got, want)}
     bwd_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     print(f"trunk {name} {shape}: fwd max|err| {fwd_err:.3e} (limit "
-          f"{TRUNK_FWD_ATOL:g}); bwd max|err|/max|ref| "
+          f"{TRUNK_FWD_ATOL:g}), share of outputs that differ from plain "
+          f"{fwd_differ:.3e}; bwd max|err|/max|ref| "
           + " ".join(f"{n} {r:.2e}" for n, r in rel.items())
-          + f" (limit {TRUNK_BWD_RTOL:g})")
+          + f" (limit {TRUNK_BWD_RTOL:g}); bit-identical across two calls: "
+          f"fwd {fwd_again}, bwd {bwd_again}")
     check(fwd_err <= TRUNK_FWD_ATOL, f"trunk {name} forward error {fwd_err}")
+    check(fwd_again, f"trunk {name} forward differs between two calls")
+    check(bwd_again, f"trunk {name} backward differs between two calls")
     for n, r in rel.items():
         check(r <= TRUNK_BWD_RTOL, f"trunk {name} {n} error {r}")
     return fwd_err, bwd_err, max(rel.values())
@@ -382,18 +448,11 @@ def trunk_timings(gen):
     t = kb.trunk_times(args, dy, w0s)
     card = card_line()
     for k in ("fwd", "bwd", "fwd_bwd"):
-        print(f"trunk time {k}: kernel {t[k]:.4f} ms, plain "
-              f"{t[k + '_plain']:.4f} ms (device time, median of 20, "
+        print(f"trunk time {k}: kernel {t[k]:.4f} ms (median of 20), plain "
+              f"{t[k + '_plain']:.4f} ms (median of 5) (device time, "
               f"{kb.TRUNK_SLICE}; {card})")
-    split = kb.trunk_backward_split(args, dy, w0s)
-    if split is None:
-        print("trunk backward split: the profiler recorded no device time "
-              "(not measured)")
-    else:
-        print("trunk backward split, device ms per call (torch.profiler, 5 "
-              "calls): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-              + f" ({card})")
-    t["bwd_split"] = split
+    t["bwd_split"] = kb.trunk_backward_split(args, dy, w0s)
+    print_split("trunk backward", t["bwd_split"], card)
     return t
 
 
@@ -502,15 +561,18 @@ DIGITS = ["abcdef", "bc", "abged", "abgcd", "fgbc", "afgcd", "afgedc",
           "abc", "abcdefg", "abcdfg"]
 
 
-def write_mnist(n_train, n_val, seed=0):
+def write_mnist(n_train, n_val, seed=0, root=MNIST_ROOT):
     """Procedural digits (seven-segment strokes with a random shift,
-    thickness and brightness) as MNIST idx files under build/."""
+    thickness and brightness) as MNIST idx files under ``root`` (build/ by
+    default); ``n_val`` 0 writes no val split."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    raw = MNIST_ROOT / "MNIST" / "raw"
+    raw = Path(root) / "MNIST" / "raw"
     raw.mkdir(parents=True, exist_ok=True)
     yy, xx = np.mgrid[0:28, 0:28].astype(np.float32)
     for prefix, n in (("train", n_train), ("t10k", n_val)):
+        if n == 0:
+            continue
         labels = (np.arange(n) % 10).astype(np.uint8)
         images = np.zeros((n, 28, 28), np.float32)
         for i, lab in enumerate(labels):
@@ -733,6 +795,7 @@ def main() -> int:
          "ms": t[k], "plain_ms": t[k + "_plain"], **tri_bound,
          "library_ms": t[k + "_library"]}
         for k, e in (("fwd", (fwd_err, r_fwd)), ("bwd", (bwd_err, r_bwd)))]
+    kernels[-1]["split_ms"] = t["bwd_split"]
     trunk_shape = {k: kb.TRUNK_SLICE[k] for k in ("b", "m", "h", "layers")}
     kernels += [
         {"name": f"siren_trunk_{k}", "route": "cuda", "source": TRUNK_SOURCE,

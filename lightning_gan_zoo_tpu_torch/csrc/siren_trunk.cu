@@ -20,42 +20,45 @@
 // What bounds it on this card. Per row the trunk does 6 products of
 // 256×256 (0.79 MFLOP forward) against 12 bytes of input and 512 bytes of
 // output, so once the activations stay on chip it is bound by the tensor
-// cores, by feeding them the weights and, in the backward, by the sine
-// derivative's elementwise work on the CUDA cores. The six bf16 weight
-// matrices (768 KB) do not fit in a block's 227 KB of shared memory, so each
-// layer's matrix is streamed through shared memory in 64-row chunks; every
-// block reads the same weights, which stay in L2.
+// cores, by feeding them the weights and by the sine's elementwise work on
+// the CUDA cores. The six bf16 weight matrices (768 KB) do not fit in a
+// block's 227 KB of shared memory, so each layer's matrix is streamed
+// through shared memory in 64-row chunks; every block reads the same
+// weights, which stay in L2.
 //
-// The forward holds 32 rows per block: their activations (32×256 bf16,
-// 16 KB) and the f32 product tile (32 KB) never leave the SM between layers,
-// and two blocks fit on an SM so one block's synchronous weight loads
-// overlap the other's products. Its products are warp-level tensor-core
-// MMAs (nvcuda::wmma, bf16 16×16×16, f32 accumulate).
+// The product core, shared by both directions: a 64-row tile (one wgmma M)
+// on chip, four warpgroups each multiplying it by a quarter of the columns
+// (`wgmma` m64nNk16, bf16, f32 accumulators in registers), both operands in
+// shared memory: the activation tile as K-major 8×8 core matrices, the
+// weights from a 3-stage ring of 64-row chunks that one thread fills with
+// 1-D `cp.async.bulk` copies completing on mbarriers. The wrapper packs W
+// and Wᵀ once per autograd call into that layout (pack_weights), so a chunk
+// is one contiguous copy and no tensor map is needed; the ring runs across
+// products and across a block's tiles, so the next layer's chunks land while
+// the elementwise steps run. The f32 product tile (st) is the meeting point
+// of the products and the elementwise steps, which are unrolled and
+// branch-free so their long dependent chains interleave across 16 warps.
 //
-// The backward (three kernels, one call), redesigned for Hopper:
-//   1. `trunk_bwd_chain_kernel`: per 64-row tile (one wgmma M), recompute
-//      the forward, then walk the layers back keeping dh on chip. Its 12
-//      products per tile run on `wgmma` (m64nNk16, bf16, f32 accumulators in
-//      registers), four warpgroups each taking a quarter of the columns,
-//      both operands in shared memory: the activation tile as K-major 8×8
-//      core matrices, the weights from a 3-stage ring of 64-row chunks that
-//      one thread fills with 1-D `cp.async.bulk` copies completing on
-//      mbarriers. The wrapper packs W and Wᵀ once per call into that layout
-//      (pack_weights), so a chunk is one contiguous copy and no tensor map is
-//      needed; the ring runs across products, so the next layer's chunks
-//      land while the elementwise steps run. The 64-row tile halves the L2
-//      weight traffic of the 32-row WMMA design (25 GB instead of 50 GB per
-//      million rows), and the f32 product tile (st) stays the meeting point
-//      of the products and the elementwise steps, which are unrolled and
-//      branch-free so their long dependent chains interleave across 16 warps.
-//      The TPU kernel kept the per-layer stash (pre-activations and layer
-//      inputs, ~5 MB for 512 rows) in VMEM; here it does not fit, so each
-//      layer's pre-activation a_i and input h_i (both exactly bf16 for
-//      layers ≥ 1) are spilled to device scratch the wrapper allocates, and
-//      a_0 (f32) is recomputed from x. The slot of a_i is overwritten with
-//      the bf16 da_i once the walk has read it. Column sums (db, dγ, dβ, and
-//      dW0 = xᵀ·da_0 with Cin ≤ 4 rows) accumulate in one partial per block;
-//      dx is finished in the block.
+// The forward, `trunk_fwd_kernel`: per 64-row tile, layer 0 in f32, then
+// L−1 ring products, each followed by the elementwise step that the
+// backward's recompute runs (the same routines, without the stash), and the
+// last layer's bf16 rows copied out as 16-byte vectors. A block walks
+// rows_per_block rows of one sample, so the ring never refills between its
+// tiles. The 64-row tile halves the L2 weight traffic of a 32-row tile
+// (25 GB instead of 50 GB per million rows).
+//
+// The backward (three kernels, one call):
+//   1. `trunk_bwd_chain_kernel`: per 64-row tile, recompute the forward
+//      (the forward's code, plus stash writes), then walk the layers back
+//      keeping dh on chip, 12 products per tile on the same core. The TPU
+//      kernel kept the per-layer stash (pre-activations and layer inputs,
+//      ~5 MB for 512 rows) in VMEM; here it does not fit, so each layer's
+//      pre-activation a_i and input h_i (both exactly bf16 for layers ≥ 1)
+//      are spilled to device scratch the wrapper allocates, and a_0 (f32) is
+//      recomputed from x. The slot of a_i is overwritten with the bf16 da_i
+//      once the walk has read it. Column sums (db, dγ, dβ, and dW0 = xᵀ·da_0
+//      with Cin ≤ 4 rows) accumulate in one partial per block; dx is
+//      finished in the block.
 //   2. `trunk_bwd_dw_kernel`: dWmid_i = h_iᵀ·da_i, a sum over all rows, as a
 //      split-K `wgmma` GEMM over the two stashes: each block takes a range
 //      of 64-row k-steps for 128 rows of dW (two warpgroups, m64nHk16), fed
@@ -63,7 +66,8 @@
 //      is stored in 8-row slabs so that a k-step of either operand is the
 //      K-major layout wgmma reads for hᵀ and daᵀ (see "The stash" below).
 //   3. `trunk_bwd_sum_*_kernel`s reduce the partials in a fixed order.
-// No atomics: the backward is deterministic run to run.
+// No atomics: both directions are deterministic run to run, and the
+// backward differentiates the very function the forward computed.
 //
 // Plain C interface, loaded with ctypes: each function launches on the given
 // stream, does not synchronise, and returns cudaGetLastError() (or
@@ -71,20 +75,14 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kTM = 32;        // rows per tile: 2 row tiles of 16
 constexpr int kKC = 64;        // weight rows (columns, in the backward) per chunk
-constexpr int kPad = 8;        // bf16 row padding: 16 bytes
-constexpr int kPadF = 4;       // f32 row padding: 16 bytes
 constexpr int kMaxL = 16;
 constexpr int kMaxCin = 4;
 
@@ -108,9 +106,19 @@ __device__ __forceinline__ float bfr(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// rintf(t) (round half to even) on the FP32 pipe instead of the slower
+// conversion unit: adding and taking away 2^23 leaves an integer, rounded
+// to even, for |t| < 2^23; a larger t is an integer already. (The sign of a
+// zero result may differ, and a sine of ±0 is ±0 either way.)
+__device__ __forceinline__ float round_even(float t) {
+  const float c = copysignf(8388608.0f, t);
+  const float k = __fsub_rn(__fadd_rn(t, c), c);
+  return fabsf(t) < 8388608.0f ? k : t;
+}
+
 // Cody–Waite reduction, each step rounded as the JAX code rounds it
 __device__ __forceinline__ float sin_reduce(float x) {
-  const float k = rintf(__fmul_rn(x, kInvTwoPi));
+  const float k = round_even(__fmul_rn(x, kInvTwoPi));
   return __fsub_rn(__fsub_rn(x, __fmul_rn(k, kC1)), __fmul_rn(k, kC2));
 }
 
@@ -146,120 +154,8 @@ __device__ __forceinline__ float layer0_pre(const float* __restrict__ xr,
   return __fadd_rn(a, b0);
 }
 
-template <int H>
-struct Layout {
-  static constexpr int HP = H + kPad;   // activation row stride (bf16)
-  static constexpr int SP = H + kPadF;  // product row stride (f32)
-  static constexpr int KP = kKC + kPad; // transposed weight chunk stride
-  static constexpr int NF = H / 64;     // 16-column fragments per warp
-  static constexpr int RG = kThreads / H;  // row groups of the elementwise map
-  static constexpr int kActBytes = kTM * HP * 2;
-  static constexpr int kProdBytes = kTM * SP * 4;
-  static constexpr int kWBytes =
-      (kKC * HP > H * KP ? kKC * HP : H * KP) * 2;
-  static constexpr int kBytes = kActBytes + kProdBytes + kWBytes;
-};
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// st[kTM × H] = hs[kTM × H] · W[H × H] (W row-major, (in, out)), W streamed
-// through ws in kKC-row chunks. Warp w owns row tile w % 2 and the column
-// block of NF fragments w / 2. Leaves every thread past a __syncthreads with
-// the product in st.
-template <int H>
-__device__ __forceinline__ void product_fwd(const bf16* __restrict__ hs,
-                                            const bf16* __restrict__ W,
-                                            bf16* ws, float* st, int tid) {
-  using Lt = Layout<H>;
-  const int warp = tid / 32, rt = warp % 2, cg = warp / 2;
-  FragC acc[Lt::NF];
-#pragma unroll
-  for (int f = 0; f < Lt::NF; ++f) wmma::fill_fragment(acc[f], 0.0f);
-  for (int k0 = 0; k0 < H; k0 += kKC) {
-    __syncthreads();  // ws free, hs written
-    for (int v = tid; v < kKC * H / 8; v += kThreads) {
-      const int r = v / (H / 8), c = (v % (H / 8)) * 8;
-      *reinterpret_cast<uint4*>(ws + r * Lt::HP + c) =
-          *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * H + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, hs + rt * 16 * Lt::HP + k0 + kk, Lt::HP);
-#pragma unroll
-      for (int f = 0; f < Lt::NF; ++f) {
-        FragBr fb;
-        wmma::load_matrix_sync(fb, ws + kk * Lt::HP + (cg * Lt::NF + f) * 16,
-                               Lt::HP);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < Lt::NF; ++f) {
-    wmma::store_matrix_sync(st + rt * 16 * Lt::SP + (cg * Lt::NF + f) * 16,
-                            acc[f], Lt::SP, wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// grid (ceil(M / kTM), B); block kThreads; dynamic smem Layout<H>::kBytes.
-template <int H>
-__global__ void __launch_bounds__(kThreads, 2)
-trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0k,
-                 const bf16* __restrict__ wmid, const float* __restrict__ bias,
-                 const float* __restrict__ gam, const float* __restrict__ bet,
-                 bf16* __restrict__ out, int M, int Cin, int L, int n_film,
-                 W0s w0s) {
-  using Lt = Layout<H>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  float* st = reinterpret_cast<float*>(smem + Lt::kActBytes);
-  bf16* ws = reinterpret_cast<bf16*>(smem + Lt::kActBytes + Lt::kProdBytes);
-
-  const int tid = threadIdx.x, b = blockIdx.y;
-  const int row0 = blockIdx.x * kTM, nrows = min(kTM, M - row0);
-  const size_t base = (size_t)b * M + row0;
-  const int c = tid % H, r0 = tid / H;  // this thread's column and rows
-
-  {  // layer 0, f32
-    const bool filmed = n_film > 0;
-    const float g = filmed ? gam[(size_t)b * n_film * H + c] : 1.0f;
-    const float bt = filmed ? bet[(size_t)b * n_film * H + c] : 0.0f;
-    for (int r = r0; r < kTM; r += Lt::RG) {
-      float h = 0.0f;
-      if (r < nrows) {
-        const float a = layer0_pre(x + (base + r) * Cin, w0k, bias[c], Cin, H, c);
-        const float f = filmed ? __fadd_rn(__fmul_rn(g, a), bt) : a;
-        h = sin_poly(__fmul_rn(w0s.v[0], f));
-      }
-      hs[r * Lt::HP + c] = __float2bfloat16(h);
-    }
-  }
-  for (int i = 1; i < L; ++i) {
-    product_fwd<H>(hs, wmid + (size_t)(i - 1) * H * H, ws, st, tid);
-    const bool filmed = i < n_film;
-    const float bb = bfr(bias[i * H + c]);
-    const float g = filmed ? bfr(gam[((size_t)b * n_film + i) * H + c]) : 1.0f;
-    const float bt = filmed ? bfr(bet[((size_t)b * n_film + i) * H + c]) : 0.0f;
-    for (int r = r0; r < kTM; r += Lt::RG) {
-      const float a = bfr(bfr(st[r * Lt::SP + c]) + bb);
-      const float f = filmed ? bfr(bfr(g * a) + bt) : a;
-      hs[r * Lt::HP + c] = __float2bfloat16(sin_poly(__fmul_rn(w0s.v[i], f)));
-    }
-  }
-  // each thread reads back only the elements it wrote: no barrier needed
-  for (int r = r0; r < nrows; r += Lt::RG) {
-    out[(base + r) * H + c] = hs[r * Lt::HP + c];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Hopper building blocks of the backward: mbarriers, 1-D bulk copies (the
+// Hopper building blocks: mbarriers, 1-D bulk copies (the
 // TMA's plain-copy form: no tensor map), wgmma on operands in shared memory.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -462,7 +358,7 @@ struct Wgmma<256> {
 };
 
 // ---------------------------------------------------------------------------
-// The backward.
+// The product core, the forward and the backward.
 
 // The slots of the per-block column sums: db_i, dγ_i, dβ_i, dW0_k.
 struct Slots {
@@ -514,9 +410,10 @@ __device__ __forceinline__ uint4* slab_at(bf16* slot, size_t slab, int c) {
   return reinterpret_cast<uint4*>(slot + (slab * H + c) * 8);
 }
 
-// The chain kernel: a 64-row tile (one wgmma M) on chip for the whole
-// trunk, four warpgroups, each multiplying it by a quarter of the columns.
-// 16 warps per SM hide the latency of the elementwise steps' long chains.
+// The product core of the forward and the chain kernel: a 64-row tile (one
+// wgmma M) on chip for the whole trunk, four warpgroups, each multiplying it
+// by a quarter of the columns. 16 warps per SM hide the latency of the
+// elementwise steps' long chains.
 constexpr int kCTM = 64;        // rows per tile
 constexpr int kCThreads = 512;  // four warpgroups
 constexpr int kCWarpgroups = kCThreads / 128;
@@ -557,11 +454,13 @@ __device__ __forceinline__ int act_at(int r, int k) {
 }
 
 // The ring of packed weight chunks. Every tile multiplies by the same
-// sequence of 2(L−1)·KCH chunks: the L−1 recompute products (W packed as its
-// transpose, matrices 0…L−2), then the walk back's (W itself, matrices
-// L−1…2L−3, used from the last layer down). Chunk q of the block's sequence
-// goes to stage q % kRingStages; its "full" barrier completes when its bytes
-// land, its "empty" one when all 16 warps are done reading it.
+// sequence of per_tile·KCH chunks. The forward's per_tile = L−1 products
+// use W packed as its transpose, matrices 0…L−2; the backward's per_tile =
+// 2(L−1) are those L−1 (its recompute), then the walk back's (W itself,
+// matrices L−1…2L−3, used from the last layer down). Chunk q of the
+// block's sequence goes to stage q % kRingStages; its "full" barrier
+// completes when its bytes land, its "empty" one when all 16 warps are done
+// reading it.
 struct Ring {
   unsigned char* buf;
   uint64_t* full;
@@ -572,13 +471,13 @@ struct Ring {
 template <int H>
 __device__ __forceinline__ void ring_issue(const Ring& rg,
                                            const bf16* __restrict__ wpack,
-                                           int q, int L) {
+                                           int q, int L, int per_tile) {
   using Cl = ChainLayout<H>;
   const int stage = q % kRingStages;
   if (q >= kRingStages) {
     mbar_wait(&rg.empty[stage], (q / kRingStages - 1) & 1);
   }
-  const int p = q % (2 * (L - 1) * Cl::KCH);
+  const int p = q % (per_tile * Cl::KCH);
   const int j = p / Cl::KCH, kc = p % Cl::KCH;
   const int mat = j < L - 1 ? j : (L - 1) + (2 * L - 3 - j);
   mbar_expect_tx(&rg.full[stage], Cl::kChunkBytes);
@@ -588,7 +487,7 @@ __device__ __forceinline__ void ring_issue(const Ring& rg,
 }
 
 // st[64 × H] = act[64 × H] · B, B the next matrix of the ring's sequence
-// (W for a recompute product, Wᵀ on the walk back), one chunk of 64 K-rows
+// (W for a forward product, Wᵀ on the walk back), one chunk of 64 K-rows
 // at a time from the ring. Warpgroup w takes columns [w·NW, (w+1)·NW), NW =
 // H/4: four m64nNWk16 wgmmas per chunk, f32 accumulators in registers, then
 // written to st. Every thread enters it past its last act store and leaves
@@ -598,7 +497,7 @@ __device__ __forceinline__ void ring_product(const bf16* act, float* st,
                                              const Ring& rg,
                                              const bf16* __restrict__ wpack,
                                              int& q, int total, int L,
-                                             int tid) {
+                                             int per_tile, int tid) {
   using Cl = ChainLayout<H>;
   fence_proxy_async();  // this thread's act stores, visible to wgmma
   __syncthreads();      // act complete; every thread done reading st
@@ -625,7 +524,7 @@ __device__ __forceinline__ void ring_product(const bf16* act, float* st,
     __syncwarp();
     if (lane == 0) mbar_arrive(&rg.empty[stage]);
     if (tid == 0 && q + kRingStages < total)
-      ring_issue<H>(rg, wpack, q + kRingStages, L);
+      ring_issue<H>(rg, wpack, q + kRingStages, L, per_tile);
   }
   const int row = ((tid / 32) % 4) * 16 + lane / 4;
 #pragma unroll
@@ -639,7 +538,7 @@ __device__ __forceinline__ void ring_product(const bf16* act, float* st,
   __syncthreads();
 }
 
-// The chain kernel's elementwise steps. Thread (c, g0) owns column c of the
+// The elementwise steps. Thread (c, g0) owns column c of the
 // tile's 8-row slabs g0, g0 + RG, …, NSU of them at a time. The loops over
 // those rows are unrolled and free of branches, so the compiler interleaves
 // their dependent chains: a layer without FiLM runs with γ = 1 and β = 0
@@ -656,9 +555,15 @@ struct Tile {
   }
 };
 
-// Layer 0 of the recompute: h_1 = sin(w0·FiLM(x·W0 + b0)), f32, into act
-// and the stash (0 in the rows past M).
-template <int H>
+// Two bf16 as the 32-bit word of a Pack8 (the first in the low half).
+__device__ __forceinline__ uint32_t word(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Layer 0 of the forward: h_1 = sin(w0·FiLM(x·W0 + b0)), f32, into act
+// (0 in the rows past M) and, with kStash (the backward's recompute), into
+// the stash.
+template <int H, bool kStash>
 __device__ __forceinline__ void recompute_layer0(
     const Tile& t, const float* __restrict__ x, const float* __restrict__ w0k,
     float b0, int Cin, float g, float bt, float w0, bf16* __restrict__ act,
@@ -669,30 +574,43 @@ __device__ __forceinline__ void recompute_layer0(
 #pragma unroll
     for (int j = 0; j < Cl::NSU; ++j) {
       const int s = t.g0 + (j0 + j) * Cl::RG;
-      Pack8 hp;
+      float h[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int r = s * 8 + e;
         const float a = layer0_pre(x + t.xrow(r) * Cin, w0k, b0, Cin, H, t.c);
-        const float h = sin_poly(__fmul_rn(w0, __fadd_rn(__fmul_rn(g, a), bt)));
-        const bf16 hb = __float2bfloat16(r < t.nrows ? h : 0.0f);
-        hp.set(e, hb);
-        act[act_at(r, t.c)] = hb;
+        h[e] = sin_poly(__fmul_rn(w0, __fadd_rn(__fmul_rn(g, a), bt)));
+        h[e] = r < t.nrows ? h[e] : 0.0f;
       }
-      *slab_at<H>(hstash, t.slab0 + s, t.c) = hp.vec();
+      Pack8 hp;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(h[2 * q], h[2 * q + 1]);
+        hp.w[q] = word(h2);
+        act[act_at(s * 8 + 2 * q, t.c)] = h2.x;
+        act[act_at(s * 8 + 2 * q + 1, t.c)] = h2.y;
+      }
+      if (kStash) *slab_at<H>(hstash, t.slab0 + s, t.c) = hp.vec();
     }
   }
 }
 
-// Layer i ≥ 1 of the recompute, after its product (in st): a_i =
-// bfr(bfr(product) + b_i) into its stash slot; unless kLast, h_{i+1} =
-// sin(w0·FiLM(a_i)), FiLM in bf16, into act and the next slot.
-template <int H, bool kLast>
+// Layer i ≥ 1 of the forward, after its product (in st): a_i =
+// bf16(bf16(product) + b_i); unless kLast, h_{i+1} = sin(w0·FiLM(a_i)),
+// FiLM in bf16, into act. With kStash (the backward's recompute) a_i also
+// goes to its stash slot and h_{i+1} to the next. The bf16 steps run on
+// pairs of rows (bf16x2 instructions, each rounded once to nearest, as the
+// plain version's bf16 ops round), so the product is converted once and
+// the f32 sine's result once per pair.
+template <int H, bool kLast, bool kStash>
 __device__ __forceinline__ void recompute_layer(
     const Tile& t, const float* __restrict__ st, float bb, float g, float bt,
     float w0, bf16* __restrict__ act, bf16* __restrict__ a_slot,
     bf16* __restrict__ h_slot) {
   using Cl = ChainLayout<H>;
+  const __nv_bfloat162 bb2 = __float2bfloat162_rn(bb);
+  const __nv_bfloat162 g2 = __float2bfloat162_rn(g);
+  const __nv_bfloat162 bt2 = __float2bfloat162_rn(bt);
 #pragma unroll 1
   for (int j0 = 0; j0 < Cl::NSL; j0 += Cl::NSU) {
     float sv[Cl::NSU][8];  // every load before the first store
@@ -706,20 +624,89 @@ __device__ __forceinline__ void recompute_layer(
       const int s = t.g0 + (j0 + j) * Cl::RG;
       Pack8 ap, hp;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int r = s * 8 + e;
-        const float a = bfr(bfr(sv[j][e]) + bb);
-        ap.set(e, __float2bfloat16(a));
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 a2 = __hadd2_rn(
+            __floats2bfloat162_rn(sv[j][2 * q], sv[j][2 * q + 1]), bb2);
+        ap.w[q] = word(a2);
         if (!kLast) {
-          const float f = bfr(bfr(g * a) + bt);
-          const bf16 hb = __float2bfloat16(sin_poly(__fmul_rn(w0, f)));
-          hp.set(e, hb);
-          act[act_at(r, t.c)] = hb;
+          const float2 f = __bfloat1622float2(
+              __hadd2_rn(__hmul2_rn(g2, a2), bt2));
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(
+              sin_poly(__fmul_rn(w0, f.x)), sin_poly(__fmul_rn(w0, f.y)));
+          hp.w[q] = word(h2);
+          act[act_at(s * 8 + 2 * q, t.c)] = h2.x;
+          act[act_at(s * 8 + 2 * q + 1, t.c)] = h2.y;
         }
       }
-      *slab_at<H>(a_slot, t.slab0 + s, t.c) = ap.vec();
-      if (!kLast) *slab_at<H>(h_slot, t.slab0 + s, t.c) = hp.vec();
+      if (kStash) *slab_at<H>(a_slot, t.slab0 + s, t.c) = ap.vec();
+      if (kStash && !kLast) *slab_at<H>(h_slot, t.slab0 + s, t.c) = hp.vec();
     }
+  }
+}
+
+// grid (n_chunks, B), n_chunks = ceil(M / rows_per_block): block (chunk, b)
+// takes rows [chunk·rows_per_block, ...) of sample b, 64 at a time, up to
+// M, and writes their (·, H) bf16 outputs. wpack: the packed weights
+// (pack_weights in ops/cuda/siren_trunk.py); only its first L−1 matrices
+// are read.
+template <int H>
+__global__ void __launch_bounds__(kCThreads, 1)
+trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0k,
+                 const bf16* __restrict__ wpack,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ gam, const float* __restrict__ bet,
+                 bf16* __restrict__ out, int M, int Cin, int L, int n_film,
+                 int rows_per_block, W0s w0s) {
+  using Cl = ChainLayout<H>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  bf16* act = reinterpret_cast<bf16*>(smem + Cl::kActOff);
+  float* st = reinterpret_cast<float*>(smem + Cl::kProdOff);
+  const Ring rg{smem + Cl::kRingOff, bars, bars + kRingStages};
+
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int c = tid % H;
+  auto film = [&](const float* rows, int i, float none) {
+    return i < n_film ? rows[((size_t)b * n_film + i) * H + c] : none;
+  };
+
+  const int first = blockIdx.x * rows_per_block;
+  const int last = min(M, first + rows_per_block);
+  const int per_tile = L - 1;
+  const int total = (last - first + kCTM - 1) / kCTM * per_tile * Cl::KCH;
+  if (tid == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(&rg.full[s], 1);
+      mbar_init(&rg.empty[s], kCThreads / 32);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int q = 0; q < min(kRingStages, total); ++q)
+      ring_issue<H>(rg, wpack, q, L, per_tile);
+  }
+  int q = 0;  // chunks consumed
+
+  for (int row0 = first; row0 < last; row0 += kCTM) {
+    const Tile t{0, (size_t)b * M + row0, min(kCTM, M - row0), c, tid / H};
+    recompute_layer0<H, false>(t, x, w0k, bias[c], Cin, film(gam, 0, 1.0f),
+                               film(bet, 0, 0.0f), w0s.v[0], act, nullptr);
+    for (int i = 1; i < L; ++i) {
+      ring_product<H>(act, st, rg, wpack, q, total, L, per_tile, tid);
+      const float bb = bfr(bias[i * H + c]);
+      const float g = bfr(film(gam, i, 1.0f)), bt = bfr(film(bet, i, 0.0f));
+      recompute_layer<H, false, false>(t, st, bb, g, bt, w0s.v[i], act,
+                                       nullptr, nullptr);
+    }
+    __syncthreads();  // act holds the last layer's output
+    // 8 columns of a row are 16 contiguous bytes of act: one vector each
+    for (int v = tid; v < t.nrows * (H / 8); v += kCThreads) {
+      const int r = v / (H / 8), k = (v % (H / 8)) * 8;
+      *reinterpret_cast<uint4*>(out + (t.xrow0 + r) * H + k) =
+          *reinterpret_cast<const uint4*>(act + act_at(r, k));
+    }
+    __syncthreads();  // act is rewritten by the next tile
   }
 }
 
@@ -855,7 +842,8 @@ trunk_bwd_chain_kernel(const float* __restrict__ x,
 
   const int first = blockIdx.x * rows_per_block;
   const int last = min(Mp, first + rows_per_block);
-  const int total = (last - first) / kCTM * 2 * (L - 1) * Cl::KCH;
+  const int per_tile = 2 * (L - 1);
+  const int total = (last - first) / kCTM * per_tile * Cl::KCH;
   if (tid == 0) {
     for (int s = 0; s < kRingStages; ++s) {
       mbar_init(&rg.full[s], 1);
@@ -866,7 +854,7 @@ trunk_bwd_chain_kernel(const float* __restrict__ x,
   __syncthreads();
   if (tid == 0) {
     for (int q = 0; q < min(kRingStages, total); ++q)
-      ring_issue<H>(rg, wpack, q, L);
+      ring_issue<H>(rg, wpack, q, L, per_tile);
   }
   int q = 0;  // chunks consumed
 
@@ -875,19 +863,19 @@ trunk_bwd_chain_kernel(const float* __restrict__ x,
                  max(0, min(kCTM, M - row0)), c, tid / H};
 
     // ---- recompute the forward, stashing h_i (i ≥ 1) and a_i (i ≥ 1)
-    recompute_layer0<H>(t, x, w0k, bias[c], Cin, film(gam, 0, 1.0f),
-                        film(bet, 0, 0.0f), w0s.v[0], act, hstash);
+    recompute_layer0<H, true>(t, x, w0k, bias[c], Cin, film(gam, 0, 1.0f),
+                              film(bet, 0, 0.0f), w0s.v[0], act, hstash);
     for (int i = 1; i < L; ++i) {
-      ring_product<H>(act, st, rg, wpack, q, total, L, tid);
+      ring_product<H>(act, st, rg, wpack, q, total, L, per_tile, tid);
       const float bb = bfr(bias[i * H + c]);
       const float g = bfr(film(gam, i, 1.0f)), bt = bfr(film(bet, i, 0.0f));
       bf16* a_slot = adstash + (size_t)(i - 1) * R * H;
       if (i == L - 1) {  // the walk back needs no output
-        recompute_layer<H, true>(t, st, bb, g, bt, w0s.v[i], act, a_slot,
-                                 nullptr);
+        recompute_layer<H, true, true>(t, st, bb, g, bt, w0s.v[i], act,
+                                       a_slot, nullptr);
       } else {
-        recompute_layer<H, false>(t, st, bb, g, bt, w0s.v[i], act, a_slot,
-                                  hstash + (size_t)i * R * H);
+        recompute_layer<H, false, true>(t, st, bb, g, bt, w0s.v[i], act,
+                                        a_slot, hstash + (size_t)i * R * H);
       }
     }
 
@@ -937,7 +925,9 @@ trunk_bwd_chain_kernel(const float* __restrict__ x,
           for (int k = 0; k < Cin; ++k) p[sl.dw0(k) * H + c] += fold(3 + k);
         }
       }
-      if (i > 0) ring_product<H>(act, st, rg, wpack, q, total, L, tid);
+      if (i > 0) {
+        ring_product<H>(act, st, rg, wpack, q, total, L, per_tile, tid);
+      }
     }
     // dx = da_0 · W0ᵀ, f32
     __syncthreads();
@@ -1129,22 +1119,24 @@ W0s pack_w0s(const float* w0s, int L) {
   return p;
 }
 
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
+
 template <int H>
-cudaError_t launch_fwd(const float* x, const float* w0k, const bf16* wmid,
+cudaError_t launch_fwd(const float* x, const float* w0k, const bf16* wpack,
                        const float* bias, const float* gam, const float* bet,
                        bf16* out, int B, int M, int Cin, int L, int n_film,
-                       W0s w0s, cudaStream_t stream) {
-  constexpr int bytes = Layout<H>::kBytes;
+                       int rows_per_block, W0s w0s, cudaStream_t stream) {
+  constexpr int bytes = ChainLayout<H>::kBytes;
+  static_assert(bytes <= kMaxSmem, "the forward's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       trunk_fwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + kTM - 1) / kTM, B);
-  trunk_fwd_kernel<H><<<grid, kThreads, bytes, stream>>>(
-      x, w0k, wmid, bias, gam, bet, out, M, Cin, L, n_film, w0s);
+  const dim3 grid((M + rows_per_block - 1) / rows_per_block, B);
+  trunk_fwd_kernel<H><<<grid, kCThreads, bytes, stream>>>(
+      x, w0k, wpack, bias, gam, bet, out, M, Cin, L, n_film, rows_per_block,
+      w0s);
   return cudaGetLastError();
 }
-
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can use
 
 template <int H>
 cudaError_t launch_bwd(const float* x, const float* w0k, const bf16* wpack,
@@ -1198,28 +1190,34 @@ cudaError_t launch_bwd(const float* x, const float* w0k, const bf16* wpack,
 
 }  // namespace
 
+// wpack: the middle weights packed for the ring (pack_weights in
+// ops/cuda/siren_trunk.py; the first L−1 of its matrices are read).
+// rows_per_block must be a positive multiple of 64.
 extern "C" int lgzt_siren_trunk_fwd(const float* x, const float* w0k,
-                                    const void* wmid, const float* bias,
+                                    const void* wpack, const float* bias,
                                     const float* gam, const float* bet,
                                     void* out, int B, int M, int Cin, int H,
-                                    int L, int n_film, const float* w0s,
-                                    void* stream) {
-  if (!shape_ok(B, M, Cin, H, L, n_film)) return cudaErrorInvalidValue;
+                                    int L, int n_film, int rows_per_block,
+                                    const float* w0s, void* stream) {
+  if (!shape_ok(B, M, Cin, H, L, n_film) || rows_per_block <= 0 ||
+      rows_per_block % kCTM != 0) {
+    return cudaErrorInvalidValue;
+  }
   if (M == 0) return static_cast<int>(cudaGetLastError());
   const W0s p = pack_w0s(w0s, L);
-  const auto* wm = static_cast<const bf16*>(wmid);
+  const auto* wp = static_cast<const bf16*>(wpack);
   auto* o = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (H) {
-    case 64: err = launch_fwd<64>(x, w0k, wm, bias, gam, bet, o, B, M, Cin, L, n_film, p, s); break;
-    case 128: err = launch_fwd<128>(x, w0k, wm, bias, gam, bet, o, B, M, Cin, L, n_film, p, s); break;
-    default: err = launch_fwd<256>(x, w0k, wm, bias, gam, bet, o, B, M, Cin, L, n_film, p, s); break;
+    case 64: err = launch_fwd<64>(x, w0k, wp, bias, gam, bet, o, B, M, Cin, L, n_film, rows_per_block, p, s); break;
+    case 128: err = launch_fwd<128>(x, w0k, wp, bias, gam, bet, o, B, M, Cin, L, n_film, rows_per_block, p, s); break;
+    default: err = launch_fwd<256>(x, w0k, wp, bias, gam, bet, o, B, M, Cin, L, n_film, rows_per_block, p, s); break;
   }
   return static_cast<int>(err);
 }
 
-// wmid: the middle weights packed for the ring (pack_weights in
+// wpack: the middle weights packed for the ring (pack_weights in
 // ops/cuda/siren_trunk.py: 2·(L−1) bf16 matrices of H×H). Scratch the
 // caller allocates (Mp = M rounded up to a multiple of 64, R = B·Mp,
 // n_chunks = ceil(M / rows_per_block), nslot = L + 2·n_film + Cin): hstash
@@ -1228,7 +1226,7 @@ extern "C" int lgzt_siren_trunk_fwd(const float* x, const float* w0k,
 // part2 (L−1)·n_split·H·H f32, ps B·nslot·H f32. rows_per_block must be a
 // positive multiple of 64.
 extern "C" int lgzt_siren_trunk_bwd(
-    const float* x, const float* w0k, const void* wmid, const float* bias,
+    const float* x, const float* w0k, const void* wpack, const float* bias,
     const float* gam, const float* bet, const void* dy, float* dx, float* dw0,
     float* dwm, float* db, float* dg, float* dbt, void* hstash, void* adstash,
     float* part, float* part2, float* ps, int B, int M, int Cin, int H, int L,
@@ -1240,7 +1238,7 @@ extern "C" int lgzt_siren_trunk_bwd(
     return cudaErrorInvalidValue;
   }
   const W0s p = pack_w0s(w0s, L);
-  const auto* wm = static_cast<const bf16*>(wmid);
+  const auto* wm = static_cast<const bf16*>(wpack);
   const auto* d = static_cast<const bf16*>(dy);
   auto* hst = static_cast<bf16*>(hstash);
   auto* ads = static_cast<bf16*>(adstash);

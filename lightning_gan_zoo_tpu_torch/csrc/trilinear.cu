@@ -24,20 +24,51 @@
 // are clamped to the volume from the UNCLAMPED floor, and the weights come
 // from the unclamped fractions. All arithmetic is f32.
 //
-// The backward scatters g * w into a zero-filled gradient with f32
-// atomicAdd. Atomics make the order of the sum at each voxel vary from run
-// to run, so the gradient is not bit-reproducible; it agrees with an
-// ordered sum to f32 rounding (about 1e-6 relative at these sizes).
+// The backward is deterministic: no float atomics, every voxel's gradient
+// summed in one fixed order. The TPU kernel summed its point tiles into one
+// VMEM scratch in grid order; here blocks run in no order, so the backward
+// gathers instead of scattering. Entry e = point·8 + corner of a sample
+// touches one voxel; the inverse map lists each voxel's entries (its bin)
+// in ascending order of e, built by a stable counting sort over groups of
+// kGroupPoints points, every count in shared memory (integer atomics there
+// count, and the counts do not depend on the order). Three kernels, one
+// call:
+//   1. `trilinear_count_kernel`, a block per (group, sample): the group's
+//      entries per voxel;
+//   2. `trilinear_place_kernel`, a block per (group, sample): from all
+//      groups' counts, the start of each voxel's bin (a scan of the totals)
+//      plus the entries of earlier groups there; then the group's entries
+//      sorted stably by voxel in shared memory (its counts scanned, the
+//      entries placed with cursors, then each moved to its rank among the
+//      smaller entries of its local bin), each written, as its point and
+//      weight, to that base + its rank: the map comes out sorted without a
+//      sort pass;
+//   3. `trilinear_bwd_kernel`: a thread per voxel and kVec channels
+//      (threads along C, so the cotangent reads are coalesced 16-byte
+//      vectors where C allows) sums g[point]·w over the voxel's bin in bin
+//      order and writes the result once; a voxel without entries writes 0,
+//      so the gradient needs no zero fill. Each cotangent row is read once
+//      per corner, as the forward reads the volume, mostly from L2.
+// At HoloGAN's shapes a bin holds 8 entries on average (108 at most) and
+// the scratch is ~10 MB, small beside the 67 MB the kernels must move. A
+// product and a sum are rounded separately (no FMA), so the result equals
+// ops/cuda/trilinear.py::ordered_vox_grad, the same order in plain
+// PyTorch. A group's counts live in shared memory, so the backward takes
+// volumes of up to kMaxVox voxels.
 //
 // Plain C interface, loaded with ctypes: each function launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTilePoints = 64;  // points per block
+constexpr int kTilePoints = 64;  // points per block of the forward
+constexpr int kGroupPoints = 1024;  // points (and threads) of a sort group
+constexpr int kMaxVox = 16 * 1024;   // three int counts per voxel: 192 KB
 
 // Corner k of point (x, y, z): voxel index (z*H + y)*W + x and weight, in
 // the order of the plain version's eight terms.
@@ -98,33 +129,179 @@ trilinear_fwd_kernel(const float* __restrict__ vox,
   }
 }
 
-// grid (ceil(N / kTilePoints), B); block kThreads. dvox must be zeroed.
-__global__ void __launch_bounds__(kThreads)
-trilinear_bwd_kernel(const float* __restrict__ g,
-                     const float* __restrict__ coords,
-                     float* __restrict__ dvox,
-                     int D, int H, int W, int C, int N) {
-  __shared__ int s_idx[kTilePoints][8];
-  __shared__ float s_w[kTilePoints][8];
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kTilePoints;
-  const int np = min(kTilePoints, N - p0);
-  for (int p = threadIdx.x; p < np; p += blockDim.x) {
-    const float* q = coords + (static_cast<long long>(b) * N + p0 + p) * 3;
-    corner_setup(q[0], q[1], q[2], D, H, W, s_idx[p], s_w[p]);
+// ---------------------------------------------------------------------------
+// The backward. cnt (B·G·V ints, G = ceil(N / kGroupPoints)), off
+// (B·(V+1) ints) and map (B·8N (point, weight) pairs) are the caller's
+// scratch. Blocks of the map kernels have kGroupPoints threads.
+
+// Exclusive scan of the n ints of in, in shared memory, into out (which may
+// be in). Returns the total; every thread is past a barrier on return.
+__device__ __forceinline__ int block_scan(const int* in, int* out, int n,
+                                          int* s_warp) {
+  constexpr int nw = kGroupPoints / 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int per = (n + kGroupPoints - 1) / kGroupPoints;
+  const int lo = min(n, tid * per), hi = min(n, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += in[i];
+  int incl = s;  // inclusive over the warp
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += u;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = s_warp[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int u = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += u;
+    }
+    s_warp[lane] = w;  // inclusive over warps
   }
   __syncthreads();
-  float* dv = dvox + static_cast<long long>(b) * D * H * W * C;
-  const float* gb = g + (static_cast<long long>(b) * N + p0) * C;
-  for (int i = threadIdx.x; i < np * C; i += blockDim.x) {
-    const int p = i / C, c = i - p * C;
-    const float gv = gb[i];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      atomicAdd(dv + static_cast<long long>(s_idx[p][k]) * C + c,
-                gv * s_w[p][k]);
-    }
+  int run = (warp > 0 ? s_warp[warp - 1] : 0) + incl - s;
+  for (int i = lo; i < hi; ++i) {
+    const int c = in[i];
+    out[i] = run;
+    run += c;
   }
+  const int total = s_warp[nw - 1];
+  __syncthreads();
+  return total;
+}
+
+// This thread's point of group (g, b), if it has one: its eight corners.
+__device__ __forceinline__ bool group_point(const float* coords, int g, int b,
+                                            int D, int H, int W, int N,
+                                            int* idx, float* wt) {
+  const int p = g * kGroupPoints + threadIdx.x;
+  if (p >= N) return false;
+  const float* q = coords + (static_cast<long long>(b) * N + p) * 3;
+  corner_setup(q[0], q[1], q[2], D, H, W, idx, wt);
+  return true;
+}
+
+// grid (G, B); dynamic shared memory V ints. cnt[b][g][v] = entries of
+// group g at v.
+__global__ void __launch_bounds__(kGroupPoints)
+trilinear_count_kernel(const float* __restrict__ coords, int* __restrict__ cnt,
+                       int D, int H, int W, int N) {
+  extern __shared__ int s_cnt[];
+  const int g = blockIdx.x, b = blockIdx.y, V = D * H * W;
+  for (int v = threadIdx.x; v < V; v += kGroupPoints) s_cnt[v] = 0;
+  __syncthreads();
+  int idx[8];
+  float wt[8];
+  if (group_point(coords, g, b, D, H, W, N, idx, wt)) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) atomicAdd(s_cnt + idx[k], 1);
+  }
+  __syncthreads();
+  int* c = cnt + (static_cast<long long>(b) * gridDim.x + g) * V;
+  for (int v = threadIdx.x; v < V; v += kGroupPoints) c[v] = s_cnt[v];
+}
+
+// grid (G, B); dynamic shared memory 3·V + 8·kGroupPoints ints. Writes the
+// (point, weight) of group g's entries of sample b to their places in map;
+// the block of group 0 writes off[b][v] = Σ_{u<v} of the voxels' totals,
+// the start of v's bin (off[b][V] = 8N).
+__global__ void __launch_bounds__(kGroupPoints)
+trilinear_place_kernel(const float* __restrict__ coords,
+                       const int* __restrict__ cnt, int* __restrict__ off,
+                       int2* __restrict__ map, int D, int H, int W, int N) {
+  extern __shared__ int smem[];
+  __shared__ int s_warp[32];
+  const int g = blockIdx.x, b = blockIdx.y, V = D * H * W, G = gridDim.x;
+  int* s_base = smem;           // where the group's entries at v begin
+  int* s_cnt = smem + V;        // the voxels' totals; the placing cursors
+  int* s_start = smem + 2 * V;  // the group's counts; its local bins' starts
+  int* s_list = smem + 3 * V;   // the group's entries by local bin
+  const int* cb = cnt + static_cast<long long>(b) * G * V;
+  for (int v = threadIdx.x; v < V; v += kGroupPoints) {
+    int tot = 0, pre = 0, own = 0;
+#pragma unroll 4
+    for (int h = 0; h < G; ++h) {
+      const int n = cb[static_cast<long long>(h) * V + v];
+      tot += n;
+      pre += h < g ? n : 0;
+      own = h == g ? n : own;
+    }
+    s_cnt[v] = tot;
+    s_base[v] = pre;
+    s_start[v] = own;
+  }
+  __syncthreads();
+  const int total = block_scan(s_cnt, s_cnt, V, s_warp);
+  int* o = off + static_cast<long long>(b) * (V + 1);
+  for (int v = threadIdx.x; v < V; v += kGroupPoints) {
+    s_base[v] += s_cnt[v];
+    if (g == 0) o[v] = s_cnt[v];
+  }
+  if (g == 0 && threadIdx.x == 0) o[V] = total;
+  block_scan(s_start, s_start, V, s_warp);
+  for (int v = threadIdx.x; v < V; v += kGroupPoints) s_cnt[v] = s_start[v];
+  __syncthreads();
+  int idx[8];
+  float wt[8];
+  const bool has = group_point(coords, g, b, D, H, W, N, idx, wt);
+  const int p = g * kGroupPoints + threadIdx.x;
+  if (has) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      s_list[atomicAdd(s_cnt + idx[k], 1)] = p * 8 + k;
+  }
+  __syncthreads();  // s_cnt[v] is the end of v's local bin
+  if (!has) return;
+  int2* m = map + static_cast<long long>(b) * 8 * N;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int v = idx[k], e = p * 8 + k;
+    int rank = 0;
+    for (int i = s_start[v]; i < s_cnt[v]; ++i) rank += s_list[i] < e;
+    m[s_base[v] + rank] = make_int2(p, __float_as_int(wt[k]));
+  }
+}
+
+// grid (ceil(V·C / (kVec·kThreads)), B); block kThreads. dvox[b][v][c] =
+// Σ over v's bin, in order, of g[b][point][c]·w, kVec channels per thread.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+trilinear_bwd_kernel(const float* __restrict__ g,
+                     const int* __restrict__ off,
+                     const int2* __restrict__ map,
+                     float* __restrict__ dvox, int V, int C, int N) {
+  using Vec = typename std::conditional<kVec == 4, float4, float>::type;
+  const int b = blockIdx.y, cv = C / kVec;  // vectors per voxel
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= V * cv) return;
+  const int v = i / cv, c = (i - v * cv) * kVec;
+  const int* o = off + static_cast<long long>(b) * (V + 1);
+  const int2* mb = map + static_cast<long long>(b) * 8 * N;
+  const float* gb = g + static_cast<long long>(b) * N * C + c;
+  const int lo = __ldg(o + v), hi = __ldg(o + v + 1);
+  float acc[kVec];
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) acc[u] = 0.0f;
+#pragma unroll 4
+  for (int j = lo; j < hi; ++j) {
+    const int2 pw = __ldg(mb + j);
+    const Vec t = __ldg(reinterpret_cast<const Vec*>(
+        gb + static_cast<long long>(pw.x) * C));
+    const float* tv = reinterpret_cast<const float*>(&t);
+    const float w = __int_as_float(pw.y);
+#pragma unroll
+    for (int u = 0; u < kVec; ++u)
+      acc[u] = __fadd_rn(acc[u], __fmul_rn(tv[u], w));
+  }
+  Vec res;
+  float* rv = reinterpret_cast<float*>(&res);
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) rv[u] = acc[u];
+  *reinterpret_cast<Vec*>(dvox + (static_cast<long long>(b) * V + v) * C +
+                          c) = res;
 }
 
 dim3 grid_for(int B, int N) {
@@ -144,13 +321,45 @@ extern "C" int lgzt_trilinear_fwd(const float* vox, const float* coords,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cnt B·G·D·H·W ints (G = ceil(N / 1024)), off B·(D·H·W + 1) ints and map
+// B·8N int pairs: the caller's scratch (its contents on entry do not
+// matter). D·H·W at most kMaxVox.
 extern "C" int lgzt_trilinear_bwd(const float* g, const float* coords,
-                                  float* dvox, int B, int D, int H, int W,
-                                  int C, int N, void* stream) {
-  if (B > 0 && N > 0) {
-    trilinear_bwd_kernel<<<grid_for(B, N), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        g, coords, dvox, D, H, W, C, N);
+                                  float* dvox, int* cnt, int* off, void* map,
+                                  int B, int D, int H, int W, int C, int N,
+                                  void* stream) {
+  const int V = D * H * W;
+  if (V > kMaxVox) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* m = static_cast<int2*>(map);
+  const int G = (N + kGroupPoints - 1) / kGroupPoints;
+  const int count_smem = static_cast<int>(sizeof(int)) * V;
+  const int place_smem =
+      static_cast<int>(sizeof(int)) * (3 * V + 8 * kGroupPoints);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(trilinear_count_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  count_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(trilinear_place_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  place_smem)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  trilinear_count_kernel<<<dim3(G, B), kGroupPoints, count_smem, s>>>(
+      coords, cnt, D, H, W, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  trilinear_place_kernel<<<dim3(G, B), kGroupPoints, place_smem, s>>>(
+      coords, cnt, off, m, D, H, W, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (C % 4 == 0) {
+    const int n = V * (C / 4);
+    trilinear_bwd_kernel<4><<<dim3((n + kThreads - 1) / kThreads, B),
+                              kThreads, 0, s>>>(g, off, m, dvox, V, C, N);
+  } else {
+    const int n = V * C;
+    trilinear_bwd_kernel<1><<<dim3((n + kThreads - 1) / kThreads, B),
+                              kThreads, 0, s>>>(g, off, m, dvox, V, C, N);
   }
   return static_cast<int>(cudaGetLastError());
 }

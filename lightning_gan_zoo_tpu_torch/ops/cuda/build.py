@@ -99,16 +99,17 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     floats = ctypes.POINTER(ctypes.c_float)
-    for name in ("lgzt_trilinear_fwd", "lgzt_trilinear_bwd"):
-        fn = getattr(lib, name)
-        # (in, coords, out, B, D, H, W, C, N, stream)
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
-        fn.restype = i32
-    # (x, w0k, wmid, bias, gammas, betas, out, B, M, Cin, H, L, n_film,
-    #  w0s, stream)
-    lib.lgzt_siren_trunk_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [floats, ptr]
+    # (vox, coords, out, B, D, H, W, C, N, stream)
+    lib.lgzt_trilinear_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+    lib.lgzt_trilinear_fwd.restype = i32
+    # (g, coords, dvox, cnt, off, map, B, D, H, W, C, N, stream)
+    lib.lgzt_trilinear_bwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.lgzt_trilinear_bwd.restype = i32
+    # (x, w0k, wpack, bias, gammas, betas, out, B, M, Cin, H, L, n_film,
+    #  rows_per_block, w0s, stream)
+    lib.lgzt_siren_trunk_fwd.argtypes = [ptr] * 7 + [i32] * 7 + [floats, ptr]
     lib.lgzt_siren_trunk_fwd.restype = i32
-    # (x, w0k, wmid, bias, gammas, betas, dy, dx, dw0, dwm, db, dg, dbt,
+    # (x, w0k, wpack, bias, gammas, betas, dy, dx, dw0, dwm, db, dg, dbt,
     #  hstash, adstash, part, part2, ps, B, M, Cin, H, L, n_film,
     #  rows_per_block, n_split, w0s, stream)
     lib.lgzt_siren_trunk_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [floats, ptr]

@@ -3,21 +3,22 @@
 
 Replaces lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py::siren_trunk
 (forward ``_trunk_fwd_impl``, the pl.pallas_call at :220; backward
-``_trunk_bwd_impl``, the pl.pallas_call at :271). The forward keeps a 32-row
-tile on chip across all layers and streams the weights through shared memory
-from L2 (WMMA products). The backward was bound by its synchronous weight
-loads, its 32-row tiles and its elementwise chains; it now multiplies 64-row
-tiles with ``wgmma``, fed by a ring of weight chunks that ``cp.async.bulk``
-copies fill, for which ``pack_weights`` lays out W and Wᵀ once per call. It
-spills the per-layer stash to device scratch in 8-row slabs, the operand
-layout of the weight gradient's split-K ``wgmma`` GEMM, and reduces every
-partial sum in a fixed order. The source sets all of this out.
+``_trunk_bwd_impl``, the pl.pallas_call at :271). Both directions keep a
+64-row tile on chip across all layers and multiply it with ``wgmma``, fed by
+a ring of weight chunks that ``cp.async.bulk`` copies fill, for which
+``pack_weights`` lays out W and Wᵀ once per autograd call (the forward packs,
+the backward reuses the pack). The forward and the backward's recompute run
+the same product and elementwise code. The backward spills the per-layer
+stash to device scratch in 8-row slabs, the operand layout of the weight
+gradient's split-K ``wgmma`` GEMM, and reduces every partial sum in a fixed
+order. The source sets all of this out.
 
 ``siren_trunk`` is a ``torch.autograd.Function``:
   * a CUDA tensor launches the kernel or raises — there is no fallback;
   * a CPU tensor takes the plain version (ops/siren_trunk.py), forward and
     backward;
-  * every gradient is float32 and deterministic (no atomics).
+  * the output and every gradient are deterministic (no atomics); the
+    gradients are float32.
 
 ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel calls (one backward call
 launches the chain, split-K and reduction kernels), so a run can show that
@@ -42,7 +43,8 @@ BWD_LAUNCHES = 0
 SUPPORTED_H = (64, 128, 256)
 MAX_LAYERS = 16
 MAX_CIN = 4
-#: rows of one sample that one backward block walks (a multiple of 64)
+#: rows of one sample that one forward or backward block walks (a multiple
+#: of 64)
 ROWS_PER_BLOCK = 256
 #: the weight gradient's k-step: the stash rows of each sample are padded
 #: to a multiple of it
@@ -109,17 +111,11 @@ def _check_inputs(x, w0k, wmid, bs, gammas, betas):
         _check_tensor(name, t, torch.float32, x.device)
 
 
-def _kernel_inputs(x, w0k, wmid, bs, gammas, betas):
-    """Type and device checks; the bf16 copy of the middle weights the
-    forward reads (the JAX kernel also casts them inside its call)."""
-    _check_inputs(x, w0k, wmid, bs, gammas, betas)
-    return wmid.to(torch.bfloat16).contiguous()
-
-
 def pack_weights(wmid: torch.Tensor) -> torch.Tensor:
-    """The middle weights (L−1, H, H) (in, out) as the backward's ring reads
-    them: 2·(L−1) bf16 matrices, first each W as the recompute multiplies by
-    it, then each W as the walk back multiplies by its transpose. A matrix
+    """The middle weights (L−1, H, H) (in, out) as the kernels' ring reads
+    them: 2·(L−1) bf16 matrices, first each W as the forward (and the
+    backward's recompute) multiplies by it, then each W as the walk back
+    multiplies by its transpose. A matrix
     is the B operand (N × K: b[n][k]) of its product, cut into 64-row chunks
     of K, each [k // 8 % 8][n][k % 8]: 8×8 core matrices with K innermost,
     the K-major layout wgmma reads, so one chunk is one contiguous copy."""
@@ -150,36 +146,50 @@ def _raise_on(err: int, what: str):
                            f"cudaError_t {err}")
 
 
-def launch_forward(x, w0k, wmid, bs, gammas, betas, w0s) -> torch.Tensor:
+def _check_pack(wpack, wmid):
+    n, h, _ = wmid.shape
+    _check_tensor("wpack", wpack, torch.bfloat16, wmid.device)
+    if wpack.numel() != 2 * n * h * h:
+        raise ValueError(f"siren trunk kernel: wpack has {wpack.numel()} "
+                         f"values, expected {2 * n * h * h}")
+
+
+def launch_forward(x, w0k, wmid, bs, gammas, betas, w0s, wpack=None
+                   ) -> torch.Tensor:
     """Kernel forward: float32 x (B,M,Cin), w0k (Cin,H), wmid (L−1,H,H),
-    bs (L,H), gammas/betas (B,n_film,H) on one card → (B,M,H) bf16."""
+    bs (L,H), gammas/betas (B,n_film,H) on one card → (B,M,H) bf16.
+    ``wpack``: ``pack_weights(wmid)``, packed here when not given."""
     global FWD_LAUNCHES
     b, m, cin, h, L, n_film = check_shapes(x, w0k, wmid, bs, gammas, betas,
                                            w0s)
     _check_kernel_shape(b, cin, h, L)
-    wm = _kernel_inputs(x, w0k, wmid, bs, gammas, betas)
+    _check_inputs(x, w0k, wmid, bs, gammas, betas)
+    wpack = pack_weights(wmid) if wpack is None else wpack
+    _check_pack(wpack, wmid)
     out = torch.empty((b, m, h), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = load_library().lgzt_siren_trunk_fwd(
-            x.data_ptr(), w0k.data_ptr(), wm.data_ptr(), bs.data_ptr(),
+            x.data_ptr(), w0k.data_ptr(), wpack.data_ptr(), bs.data_ptr(),
             gammas.data_ptr(), betas.data_ptr(), out.data_ptr(),
-            b, m, cin, h, L, n_film, _w0s_arg(w0s),
+            b, m, cin, h, L, n_film, ROWS_PER_BLOCK, _w0s_arg(w0s),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "forward")
     FWD_LAUNCHES += 1
     return out
 
 
-def launch_backward(x, w0k, wmid, bs, gammas, betas, dy, w0s
+def launch_backward(x, w0k, wmid, bs, gammas, betas, dy, w0s, wpack=None
                     ) -> Tuple[torch.Tensor, ...]:
     """Kernel backward: (dx, dW0, dWmid, db, dγ, dβ), all float32, for the
-    (B,M,H) cotangent ``dy`` (bf16, as the forward's output)."""
+    (B,M,H) cotangent ``dy`` (bf16, as the forward's output). ``wpack``:
+    ``pack_weights(wmid)``, packed here when not given."""
     global BWD_LAUNCHES
     b, m, cin, h, L, n_film = check_shapes(x, w0k, wmid, bs, gammas, betas,
                                            w0s)
     _check_kernel_shape(b, cin, h, L)
     _check_inputs(x, w0k, wmid, bs, gammas, betas)
-    wpack = pack_weights(wmid)
+    wpack = pack_weights(wmid) if wpack is None else wpack
+    _check_pack(wpack, wmid)
     _check_tensor("dy", dy, torch.bfloat16, x.device)
     if tuple(dy.shape) != (b, m, h):
         raise ValueError(f"siren trunk kernel: dy shape {tuple(dy.shape)}, "
@@ -224,7 +234,12 @@ class _SirenTrunk(torch.autograd.Function):
         ctx.w0s = tuple(w0s)
         if x.device.type == "cpu":
             return plain.trunk_forward(x, w0k, wmid, bs, gammas, betas, w0s)
-        return launch_forward(x, w0k, wmid, bs, gammas, betas, w0s)
+        b, _, cin, h, L, _ = check_shapes(x, w0k, wmid, bs, gammas, betas,
+                                          w0s)
+        _check_kernel_shape(b, cin, h, L)
+        ctx.wpack = pack_weights(wmid)   # once per call: the backward's too
+        return launch_forward(x, w0k, wmid, bs, gammas, betas, w0s,
+                              ctx.wpack)
 
     @staticmethod
     def backward(ctx, dy):
@@ -233,7 +248,7 @@ class _SirenTrunk(torch.autograd.Function):
             grads = plain.trunk_backward(*saved, dy, ctx.w0s)
         else:
             grads = launch_backward(*saved, dy.to(torch.bfloat16).contiguous(),
-                                    ctx.w0s)
+                                    ctx.w0s, ctx.wpack)
         return (*grads, None)
 
 

@@ -4,20 +4,25 @@ in ``csrc/trilinear.cu``.
 Replaces lightning_gan_zoo_tpu/ops/pallas/trilinear.py::trilinear_resample_mxu
 (forward ``_forward``, backward ``_backward_vox``). The kernels are memory-
 bound: at HoloGAN's shapes each pass moves a 33.5 MB f32 volume one way and
-a 33.5 MB point array the other, and does little arithmetic. Their design
-(coalesced channel-innermost access, per-point corner setup shared in
-on-chip memory, atomics for the scatter) is described in the source.
+a 33.5 MB point array the other, and does little arithmetic. The forward
+reads the corners coalesced along the channel axis, with the per-point
+corner setup shared in on-chip memory. The backward gathers rather than
+scatters: it builds an inverse map (each voxel's (point, corner) entries,
+sorted) in integer scratch, then sums every voxel's bin in that fixed order;
+the source sets this out.
 
 ``trilinear_resample`` is a ``torch.autograd.Function``:
   * a CUDA tensor launches the kernel or raises — there is no fallback;
   * a CPU tensor takes the plain version (ops/grid_sample.py);
   * the coordinate gradient is ``None``: HoloGAN's coordinates come from
     sampled views, not from parameters (as the TPU kernel's ``_bwd_rule``);
-  * the volume gradient is summed with atomics, so its low bits vary from
-    run to run (compare it with a tolerance, ~1e-6 relative).
+  * the volume gradient uses no float atomics: it is bit-identical from
+    call to call, and equals ``ordered_vox_grad``, the same summation order
+    written in plain PyTorch (which nothing on the main path calls).
 
-``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches, so a run can
-show that its main path went through the kernel.
+``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel calls (one backward call
+launches the map's two kernels and the gather), so a run can show that its
+main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -30,6 +35,10 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _MAX_GRID_Y = 65535   # the batch runs on gridDim.y
+#: voxels of one sample the backward's inverse map counts in shared memory
+MAX_VOX = 16 * 1024
+#: points of one group of the map's stable counting sort
+GROUP_POINTS = 1024
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, device: torch.device):
@@ -84,8 +93,9 @@ def launch_forward(voxels: torch.Tensor, coords: torch.Tensor
 
 def launch_backward(coords: torch.Tensor, g: torch.Tensor, vox_shape
                     ) -> torch.Tensor:
-    """Kernel backward: the (B,N,C) f32 cotangent scattered into a
-    zero-filled (B,D,H,W,C) f32 volume gradient."""
+    """Kernel backward: the (B,D,H,W,C) f32 volume gradient of the (B,N,C)
+    f32 cotangent, each voxel's terms summed in ascending order of
+    point·8 + corner."""
     global BWD_LAUNCHES
     b, d, h, w, c = vox_shape
     _check("g", g, 3, g.device)
@@ -96,15 +106,76 @@ def launch_backward(coords: torch.Tensor, g: torch.Tensor, vox_shape
     if tuple(g.shape) != (b, n, c):
         raise ValueError(f"trilinear kernel: g shape {tuple(g.shape)}, "
                          f"expected {(b, n, c)}")
-    dvox = torch.zeros(tuple(vox_shape), dtype=torch.float32,
+    v = d * h * w
+    if v > MAX_VOX:
+        raise ValueError(f"trilinear kernel backward: {v} voxels per "
+                         f"sample, at most {MAX_VOX}")
+    if b * max(8 * n, -(-n // GROUP_POINTS) * v) >= 2 ** 31:
+        raise ValueError(f"trilinear kernel backward: {b} × {n} points "
+                         f"overflow its int32 map")
+    dvox = torch.empty(tuple(vox_shape), dtype=torch.float32,
                        device=g.device)
+    # the inverse map's scratch: each point group's counts per voxel, the
+    # bins' starts, the map's (point, weight) pairs
+    groups = -(-n // GROUP_POINTS)
+    scratch = torch.empty(b * (16 * n + groups * v + v + 1),
+                          dtype=torch.int32, device=g.device)
+    vmap, cnt, off = scratch.split([b * 16 * n, b * groups * v, b * (v + 1)])
     with torch.cuda.device(g.device):
         err = load_library().lgzt_trilinear_bwd(
             g.data_ptr(), coords.data_ptr(), dvox.data_ptr(),
+            cnt.data_ptr(), off.data_ptr(), vmap.data_ptr(),
             b, d, h, w, c, n, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "backward")
     BWD_LAUNCHES += 1
     return dvox
+
+
+def _corner_terms(coords: torch.Tensor, vox_shape):
+    """Each point's eight corners as the kernels set them up: (B, N, 8)
+    voxel indices (z·H + y)·W + x, clamped from the unclamped floor, and
+    (B, N, 8) float32 weights from the unclamped fractions, corner k =
+    4·z + 2·x + y, each weight rounded as the plain resample rounds it."""
+    _, d, h, w, _ = vox_shape
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    x0, y0, z0 = torch.floor(x), torch.floor(y), torch.floor(z)
+    xs = [x0.long().clamp(0, w - 1), (x0.long() + 1).clamp(0, w - 1)]
+    ys = [y0.long().clamp(0, h - 1), (y0.long() + 1).clamp(0, h - 1)]
+    zs = [z0.long().clamp(0, d - 1), (z0.long() + 1).clamp(0, d - 1)]
+    fx, fy, fz = x - x0, y - y0, z - z0
+    wx, wy, wz = [1.0 - fx, fx], [1.0 - fy, fy], [1.0 - fz, fz]
+    idx, wt = [], []
+    for k in range(8):
+        a, i, j = k >> 2, (k >> 1) & 1, k & 1
+        idx.append((zs[a] * h + ys[j]) * w + xs[i])
+        wt.append(wx[i] * wy[j] * wz[a])
+    return torch.stack(idx, -1), torch.stack(wt, -1)
+
+
+def ordered_vox_grad(coords: torch.Tensor, g: torch.Tensor, vox_shape
+                     ) -> torch.Tensor:
+    """The backward kernel's algorithm in plain PyTorch: the inverse map
+    (each voxel's entries e = point·8 + corner, in ascending order), then
+    every voxel's sum over its bin, term by term in that order, each
+    product and sum rounded on its own. Equal to the kernel bit for bit; a
+    reference for tests and the smoke, never on the main path."""
+    b, d, h, w, c = vox_shape
+    n, v = coords.shape[1], d * h * w
+    idx, wt = _corner_terms(coords, vox_shape)
+    key = idx.reshape(b, 8 * n)
+    voxel, entry = torch.sort(key, dim=1, stable=True)   # by (voxel, e)
+    counts = torch.zeros(b, v, dtype=torch.long, device=g.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    start = torch.cumsum(counts, 1) - counts
+    rank = (torch.arange(8 * n, device=g.device)[None]
+            - start.gather(1, voxel))
+    term = (g[torch.arange(b, device=g.device)[:, None], entry // 8]
+            * wt.reshape(b, 8 * n).gather(1, entry)[..., None])
+    out = torch.zeros(b, v, c, dtype=torch.float32, device=g.device)
+    for r in range(int(counts.max()) if counts.numel() else 0):
+        bi, j = torch.nonzero(rank == r, as_tuple=True)   # one per voxel
+        out[bi, voxel[bi, j]] = out[bi, voxel[bi, j]] + term[bi, j]
+    return out.reshape(vox_shape)
 
 
 class _TrilinearResample(torch.autograd.Function):

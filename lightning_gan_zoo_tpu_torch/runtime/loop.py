@@ -320,16 +320,20 @@ class Trainer:
             self.epoch += 1
 
     def validate(self, global_step: int):
-        """Real grid from the val set; Fake grid from the fixed noise; with
+        """Real grid from the val set (skipped, as in the JAX Trainer, when
+        the split is missing); Fake grid from the fixed noise; with
         save_ckpts, a checkpoint. Without FID every validation counts as an
         improvement, so the latest epoch's checkpoint is the one kept."""
         cfg = self.cfg
         mean, std = cfg.train.data_mean, cfg.train.data_std
-        val_ds = instantiate(cfg.dataset.val, **_dataset_kwargs(cfg))
-        real = val_ds.load(list(range(min(8, len(val_ds)))))["image"]
-        self.logger.log_image(
-            "Real", make_grid(unnormalise(real, mean, std), ncol=8),
-            global_step)
+        try:
+            val_ds = instantiate(cfg.dataset.val, **_dataset_kwargs(cfg))
+            real = val_ds.load(list(range(min(8, len(val_ds)))))["image"]
+            self.logger.log_image(
+                "Real", make_grid(unnormalise(real, mean, std), ncol=8),
+                global_step)
+        except FileNotFoundError as e:
+            print(f"[val] no val dataset: {e}")
         fake = self.task.generate(
             self._fixed_noise, generator=self._generator(10_000 + self.epoch),
             params=self.state.eval_g_params(self.task.generator))

@@ -4,9 +4,10 @@ computes the same function, that call.
 
     python -m lightning_gan_zoo_tpu_torch.utils.kernel_bench
 
-Prints one JSON line per kernel and one with the trunk backward's time split
-by the kernels it launches (``torch.profiler``), each with the card's name
-and power limit. ``chip_smoke.py`` takes its timings and bounds from here.
+Prints one JSON line per kernel and one each with the trilinear and the
+trunk backward's time split by the kernels they launch (``torch.profiler``),
+each with the card's name and power limit. ``chip_smoke.py`` takes its
+timings and bounds from here.
 
 The yardsticks are never called by the port: ``F.grid_sample`` (5-D,
 trilinear, border padding, ``align_corners=True``) computes the trilinear
@@ -37,9 +38,11 @@ HOLOGAN_VIEWS = dict(elevation_low=70, elevation_high=110, azimuth_low=220,
                      transY_high=0, transZ_low=0, transZ_high=0)
 #: π-GAN's trunk at 16 px and batch 128: the fine pass's 256 rays × 32 points
 TRUNK_SLICE = dict(b=128, m=8192, h=256, layers=7, n_film=6)
-#: the kernels the trunk backward launches, as the profiler names them
+#: the kernels the backwards launch, as the profiler names them
 TRUNK_BWD_KERNELS = ("trunk_bwd_chain", "trunk_bwd_dw", "trunk_bwd_sum_dw",
                      "trunk_bwd_sum_chunks", "trunk_bwd_sum_batch")
+TRILINEAR_BWD_KERNELS = ("trilinear_count", "trilinear_place",
+                         "trilinear_bwd")
 
 
 def median_ms(fn, warmup=5, reps=20) -> float:
@@ -174,10 +177,15 @@ def trunk_inputs(gen, b, m, h, layers, n_film, unfilmed=False):
 
 def trunk_times(args, dy, w0s) -> Dict[str, float]:
     """Kernel and plain ms of the trunk's forward, backward and forward +
-    backward through the autograd function."""
+    backward through the autograd function. The kernels alone take the
+    packed weights made once beforehand, as the autograd call makes them
+    once for both directions; forward + backward includes that pack. The
+    plain version, a yardstick 20× slower, is timed over 5 calls after one
+    warm-up (the kernels over 20 after 5), which keeps the smoke's time."""
     from ..ops import siren_trunk as pt
     from ..ops.cuda import siren_trunk as st
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    wpack = st.pack_weights(args[2])
 
     def kernel_fwd_bwd():
         y = st.siren_trunk(*leaves, w0s)
@@ -187,38 +195,57 @@ def trunk_times(args, dy, w0s) -> Dict[str, float]:
         pt.trunk_forward(*args, w0s)
         pt.trunk_backward(*args, dy, w0s)
 
-    return {"fwd": median_ms(lambda: st.launch_forward(*args, w0s)),
-            "fwd_plain": median_ms(lambda: pt.trunk_forward(*args, w0s)),
-            "bwd": median_ms(lambda: st.launch_backward(*args, dy, w0s)),
-            "bwd_plain": median_ms(lambda: pt.trunk_backward(*args, dy,
-                                                             w0s)),
+    def plain_ms(fn):
+        return median_ms(fn, warmup=1, reps=5)
+
+    return {"fwd": median_ms(lambda: st.launch_forward(*args, w0s, wpack)),
+            "fwd_plain": plain_ms(lambda: pt.trunk_forward(*args, w0s)),
+            "bwd": median_ms(lambda: st.launch_backward(*args, dy, w0s,
+                                                        wpack)),
+            "bwd_plain": plain_ms(lambda: pt.trunk_backward(*args, dy, w0s)),
             "fwd_bwd": median_ms(kernel_fwd_bwd),
-            "fwd_bwd_plain": median_ms(plain_fwd_bwd)}
+            "fwd_bwd_plain": plain_ms(plain_fwd_bwd)}
 
 
-def trunk_backward_split(args, dy, w0s, reps=5) -> Optional[Dict[str, float]]:
-    """Device ms per backward call of each kernel it launches, summed from
+def kernel_split(fn, kernels, reps=5) -> Optional[Dict[str, float]]:
+    """Device ms per call of ``fn`` of each of its ``kernels``, summed from
     ``torch.profiler`` over ``reps`` calls after a warm-up; None when the
     profiler records no device time."""
-    from ..ops.cuda import siren_trunk as st
-    st.launch_backward(*args, dy, w0s)
+    fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
-            st.launch_backward(*args, dy, w0s)
+            fn()
         torch.cuda.synchronize()
-    split = dict.fromkeys(TRUNK_BWD_KERNELS, 0.0)
+    split = dict.fromkeys(kernels, 0.0)
     seen = False
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for k in TRUNK_BWD_KERNELS:
+        for k in kernels:
             if f"{k}_kernel" in ev.name:
                 split[k] += (ev.time_range.end - ev.time_range.start) / 1e3
                 seen = True
     return {k: v / reps for k, v in split.items()} if seen else None
+
+
+def trunk_backward_split(args, dy, w0s) -> Optional[Dict[str, float]]:
+    """The trunk backward's device ms per call, by kernel."""
+    from ..ops.cuda import siren_trunk as st
+    return kernel_split(lambda: st.launch_backward(*args, dy, w0s),
+                        TRUNK_BWD_KERNELS)
+
+
+def trilinear_backward_split(vox, coords, gen
+                             ) -> Optional[Dict[str, float]]:
+    """The trilinear backward's device ms per call, by kernel."""
+    from ..ops.cuda import trilinear as kt
+    g = torch.randn(coords.shape[0], coords.shape[1], vox.shape[-1],
+                    generator=gen, device="cuda")
+    return kernel_split(lambda: kt.launch_backward(coords, g, vox.shape),
+                        TRILINEAR_BWD_KERNELS)
 
 
 def main() -> int:
@@ -239,6 +266,9 @@ def main() -> int:
                           "library_max_abs_err": t[f"{k}_library_err"],
                           **trilinear_bound(vox.shape, coords.shape[1]),
                           "card": card}), flush=True)
+    print(json.dumps({"trilinear_bwd_split_ms":
+                      trilinear_backward_split(vox, coords, gen),
+                      "shape": shape, "card": card}), flush=True)
     del vox, coords
     args, dy, w0s = trunk_inputs(gen, **TRUNK_SLICE)
     tt = trunk_times(args, dy, w0s)

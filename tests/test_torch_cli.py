@@ -160,6 +160,27 @@ def test_cli_dc_gan_checkpoints_and_resumes_without_jax(tmp_path):
                              ).iterdir()] == ["model_epoch-2"]
 
 
+def test_cli_dc_gan_without_val_split_still_checkpoints(tmp_path):
+    """MNIST with only the train-* idx files (procedural digits, as
+    chip_smoke.py writes them): validation prints that there is no val
+    dataset, as the JAX Trainer does, draws the Fake grid and saves the
+    epoch's checkpoint; the run ends rc 0."""
+    import chip_smoke
+    chip_smoke.write_mnist(n_train=48, n_val=0, root=tmp_path / "data")
+    out = _run_cli(["+expt=dc_gan", "dataset=mnist",
+                    f"filepaths.mnist_parent_directory={tmp_path / 'data'}",
+                    *SMALL_2D[1:], "train.num_epochs=1", "save_ckpts=True",
+                    "version=noval", f"output_root={tmp_path}", "--device",
+                    "cpu"])
+    assert out.returncode == 0, out.stderr
+    assert "[val] no val dataset" in out.stdout
+    assert re.search(r"^epoch 0 \[", out.stdout, re.M), out.stdout
+    run = tmp_path / "dc_gan" / "noval"
+    assert [p.name for p in (run / "ckpts").iterdir()] == ["model_epoch-0"]
+    assert {p.name for p in (run / "images").iterdir()} == {"Fake_step12.png"}
+    assert "FOREIGN []" in out.stdout
+
+
 def test_cli_device_cuda_without_card_fails(tmp_path, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

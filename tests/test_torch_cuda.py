@@ -46,8 +46,27 @@ def test_kernel_matches_plain(gen, b, d, h, w, c, n):
     g = torch.randn(got.shape, generator=gen, device="cuda")
     dv = kt.launch_backward(pts, g, vox.shape)
     dref = grid_sample.trilinear_resample_vox_grad(pts, g, vox.shape)
-    # atomics sum in a run-dependent order: relative to the largest value
+    # the plain version sums each voxel's terms in another order
     assert float((dv - dref).abs().max()) <= 1e-4 * float(dref.abs().max())
+    # no atomics: the same bits every call, those of the kernel's order
+    assert torch.equal(dv, kt.launch_backward(pts, g, vox.shape))
+    assert torch.equal(dv, kt.ordered_vox_grad(pts, g, vox.shape))
+
+
+@pytest.mark.parametrize("c", [8, 3])
+def test_backward_long_bins_over_point_groups(gen, c):
+    """3,000 points inside one voxel cell and 600 clamped to a corner: bins
+    of thousands of entries, each made of 4 point groups of the map's
+    counting sort: still the ordered sum, bit for bit."""
+    vox_shape = (2, 4, 5, 6, c)
+    near = torch.rand(2, 3000, 3, generator=gen, device="cuda") + 1.0
+    far = -3.0 - torch.rand(2, 600, 3, generator=gen, device="cuda")
+    pts = torch.cat([near, far], 1).contiguous()
+    g = torch.randn(2, 3600, c, generator=gen, device="cuda")
+    dv = kt.launch_backward(pts, g, vox_shape)
+    dref = grid_sample.trilinear_resample_vox_grad(pts, g, vox_shape)
+    assert float((dv - dref).abs().max()) <= 1e-4 * float(dref.abs().max())
+    assert torch.equal(dv, kt.ordered_vox_grad(pts, g, vox_shape))
 
 
 def test_function_under_bf16_autocast_takes_f32_and_counts(gen):
@@ -101,23 +120,52 @@ def _trunk_inputs(gen, b, m, h, layers, n_film, unfilmed=False):
     (1, 63, 64, 2, 1, False), (1, 65, 128, 5, 3, False),
     (1, 1000, 256, 7, 6, False), (2, 65, 256, 3, 1, True),
     # 27 k-steps over 14 dW blocks of 2: the last block takes one
-    (3, 560, 256, 7, 6, False)])
+    (3, 560, 256, 7, 6, False),
+    # the forward's tiles and blocks: M one tile, two tiles and a row, one
+    # block of ROWS_PER_BLOCK and one row past it
+    (1, 64, 128, 3, 2, False), (2, 129, 256, 7, 6, False),
+    (1, 256, 64, 4, 2, True), (2, 257, 256, 7, 6, False)])
 def test_trunk_kernels_match_plain(gen, b, m, h, layers, n_film, unfilmed):
     """Forward within 2⁻⁸ absolute and every gradient group within 0.01 of
     its max |ref| (the JAX tests allow 0.04 and 0.03; these kernels round
-    where the plain version rounds, so the forward lands bit-identical),
-    and the backward bit-identical from run to run (no atomics)."""
+    where the plain version rounds), and both directions bit-identical from
+    run to run (no atomics)."""
     args, dy = _trunk_inputs(gen, b, m, h, layers, n_film, unfilmed)
     w0s = (30.0,) + (1.0,) * (layers - 1)
     y = st.launch_forward(*args, w0s)
     err = (y.float() - pt.trunk_forward(*args, w0s).float()).abs().max()
     assert float(err) <= 2.0 ** -8
+    assert torch.equal(y, st.launch_forward(*args, w0s))
     got = st.launch_backward(*args, dy, w0s)
     want = pt.trunk_backward(*args, dy, w0s)
     for g_, w in zip(got, want):
         assert float((g_ - w).abs().max()) <= 0.01 * float(w.abs().max())
     again = st.launch_backward(*args, dy, w0s)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_hologan_generator_gradients_replay_bit_for_bit(gen):
+    """A small HoloGAN generator's forward and backward through the
+    trilinear kernels, twice from the same weights and inputs, with cuDNN
+    held to its deterministic algorithms (inside this test only): every
+    parameter gradient bit-identical."""
+    g = hologan.Generator(8, 3, 16, VIEW_ARGS, 64).cuda()
+    z = torch.rand(4, 16, generator=gen, device="cuda") * 2 - 1
+    views = hologan.sample_view(gen, 4, VIEW_ARGS)
+    w = torch.randn(4, 3, 64, 64, generator=gen, device="cuda")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = []
+        for _ in range(2):
+            g.zero_grad(set_to_none=True)
+            bwd = kt.BWD_LAUNCHES
+            (g(z, views) * w).sum().backward()
+            assert kt.BWD_LAUNCHES - bwd == 1
+            grads.append([p.grad.clone() for p in g.parameters()])
+    finally:
+        torch.backends.cudnn.deterministic = was
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 def test_sirennet_bf16_runs_the_kernels_and_counts(gen):

@@ -4,7 +4,9 @@ On the CPU the autograd.Function takes the plain PyTorch version, which must
 match the JAX gather (f32, atol 1e-5) and the Pallas kernel in interpret mode
 (atol 3e-2, since the TPU kernel's matmuls run in bf16). The CUDA kernel
 itself runs only on a card: tests/test_torch_cuda.py holds it against the
-plain version there.
+plain version there, and bit for bit against ``ordered_vox_grad``, its
+summation order in plain PyTorch, which is held here against the JAX
+package.
 """
 import jax
 import jax.numpy as jnp
@@ -14,7 +16,8 @@ import torch
 
 from lightning_gan_zoo_tpu.ops.grid_sample import (
     trilinear_resample as jax_resample)
-from lightning_gan_zoo_tpu.ops.pallas.trilinear import trilinear_resample_mxu
+from lightning_gan_zoo_tpu.ops.pallas.trilinear import (
+    _backward_vox, trilinear_resample_mxu)
 from lightning_gan_zoo_tpu_torch.ops import grid_sample
 from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
 
@@ -68,6 +71,42 @@ def test_function_backward_matches_jax_grad(seed):
     assert p.grad is None          # coordinates get no gradient
 
 
+@pytest.mark.parametrize("shape", [dict(), dict(b=1, s=4, c=3, n=37, seed=1),
+                                   dict(b=3, s=5, c=8, n=300, seed=2)])
+def test_ordered_vox_grad_matches_jax(shape):
+    """The backward kernel's order (each voxel's (point, corner) entries in
+    ascending order of point·8 + corner, summed one by one), with the clamp
+    cases, whose corners fall on one voxel and count once each: within f32
+    rounding of the JAX gather's gradient, and of the Pallas ``_backward_vox``
+    in interpret mode within its tests' bf16 bound (6e-2)."""
+    vox, pts = _inputs(**shape)
+    b, s, c = vox.shape[0], vox.shape[1], vox.shape[-1]
+    g = np.random.default_rng(shape.get("seed", 0) + 10).normal(
+        size=(b, pts.shape[1], c)).astype(np.float32)
+    got = kt.ordered_vox_grad(torch.from_numpy(pts), torch.from_numpy(g),
+                              vox.shape).numpy()
+    _, vjp = jax.vjp(lambda v: jax_resample(v, jnp.asarray(pts)),
+                     jnp.asarray(vox))
+    np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]),
+                               atol=1e-5)
+    pallas = _backward_vox(jnp.asarray(pts), jnp.asarray(g), s, s, s, c,
+                           interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=6e-2)
+
+
+def test_ordered_vox_grad_sums_each_bin_in_entry_order():
+    """Three points on one voxel cell, a cotangent whose terms cancel
+    unless they are added in order: the sum is ((t0 + t1) + t2), term by
+    term, not the plain scatter's."""
+    pts = torch.tensor([[[0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]]])
+    g = torch.tensor([[[1.0], [1e8], [-1e8]]])
+    got = kt.ordered_vox_grad(pts, g, (1, 2, 2, 2, 1))
+    t0, t1, t2 = np.float32(1.0), np.float32(1e8), np.float32(-1e8)
+    assert (t0 + t1) + t2 != t0 + (t1 + t2)          # f32: 0 against 1
+    assert float(got[0, 0, 0, 0, 0]) == (t0 + t1) + t2
+    assert float(got.abs().sum()) == 0.0     # the other corners weigh 0
+
+
 def test_cpu_path_launches_no_kernel():
     fwd, bwd = kt.FWD_LAUNCHES, kt.BWD_LAUNCHES
     vox, pts = _inputs(b=1, s=4, c=4, n=10)
@@ -87,7 +126,6 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take():
         kt.launch_forward(v.transpose(1, 2), p)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kt.launch_backward(p, torch.zeros(1, p.shape[1], 4), v.shape)
-
 
 
 @pytest.mark.parametrize("shape", [dict(), dict(b=1, s=4, c=3, n=37, seed=1)])
