@@ -11,15 +11,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   3. the trilinear kernels against their plain PyTorch version, f32: at the
      HoloGAN shapes (B=32, 16³×64 volume, 4096 view-warped points), at a
      ragged shape (N not a multiple of the block, C=3) and with out-of-range
-     points; forward within 1e-5 absolute, backward within 1e-4 of max|ref|
-     (the plain version sums each voxel's terms in another order); the
-     backward bit-identical across two calls and to ordered_vox_grad (its
-     summation order in plain PyTorch); then their timing, kernel against
-     plain and against F.grid_sample (one library call that computes the
-     same function; the port never calls it): device time by CUDA events,
-     median of 20 after 5 warm-ups, at the HoloGAN shapes, and the
-     backward's device time split by the kernels it launches
-     (torch.profiler);
+     points; the forward equal to the plain version bit for bit (torch.equal)
+     and across two calls, the backward within 1e-4 of max|ref| (the plain
+     version sums each voxel's terms in another order), bit-identical across
+     two calls and to ordered_vox_grad (its summation order in plain
+     PyTorch); then their timing beside their bound, kernel against plain
+     and against F.grid_sample (one library call that computes the same
+     function; the port never calls it): device time by CUDA events, median
+     of 20 after 5 warm-ups, at the HoloGAN shapes, and the backward's device
+     time split by the kernels it launches (torch.profiler);
   4. the SIREN trunk kernels against their plain version under the bf16
      policy, at π-GAN's shape (B=128, M=8192 fine points, H=256, 7 layers,
      6 FiLM'd) and at a ragged, unfilmed shape (M=999, γ=1, β=0); forward
@@ -39,28 +39,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      that width, run twice from the same seed under the default cuDNN
      settings, is compared bit for bit and the answer printed (not a
      check: cuDNN may pick algorithms that sum in a varying order);
-  6. the π-GAN main path: run_network_torch.main() trains π-GAN with its
+     then the FID Inception (random init) on the card against itself on the
+     CPU in f32 on 4 images, pool3 within 1e-3 of max|ref| (cuDNN in full
+     f32, TF32 off), and its images/s at the validation's batch of 50;
+  6. the validation stage, as runs of its own so that the counts above
+     stay exact: HoloGAN at the same width with calc_fid=True,
+     save_ckpts=True and val.fid_n_samples cut to 1,000 trains 2
+     supersteps and validates (FID/KID with the random-init Inception,
+     fakes generated through the trilinear kernel); fid_uncalibrated and
+     kid_uncalibrated must be finite, the checkpoint's meta carry best_fid
+     and fid_calibrated false, and the forward's launches count the
+     validation's 20 batches of 50; then eval_only=true on that run's
+     checkpoints prints `eval …`, writes no checkpoint and launches only
+     the validation's forwards; each validation's seconds are printed;
+  7. the π-GAN main path: run_network_torch.main() trains π-GAN with its
      machine=small config (SIREN 256 × 6, noise 128, 16 + 16 points, D
      init_chan 64, bf16) through its three resolutions (16, 32, 64 px at
      batches 128, 32, 8, ×4 accumulation in the last epoch, fold_steps 8
      clamped to the 512 images); per epoch the losses must be finite; the
      trunk launch counts must be exactly what the path implies, and the
      trained generator through the kernels must match its plain-trunk twin;
-  7. dc_gan on MNIST-format data: idx files of procedural digits written
+  8. dc_gan on MNIST-format data: idx files of procedural digits written
      with numpy under build/, 1 channel, 64 px, batch 128, features 64,
      bf16, G weight EMA 0.999; two epochs with checkpoints leave exactly
      model_epoch-1, then a second run resumes from that directory to epoch
      3: it must print the resume, start at epoch 2, continue the step count,
      and hold the saved state bit for bit right after the restore;
-  8. wgan: RMSprop (the optax rule) at lr 5e-5, batch 64, 5 critic updates
+  9. wgan: RMSprop (the optax rule) at lr 5e-5, batch 64, 5 critic updates
      per G update; after training every D parameter lies within ±0.01;
-  9. wgan_gp: the instance-norm D, batch 64; the gradient penalty is finite
+ 10. wgan_gp: the instance-norm D, batch 64; the gradient penalty is finite
      and positive;
- 10. gan_stability_r1: 128 px, batch 64, nfilter 16, nf_max 512, noise 256,
+ 11. gan_stability_r1: 128 px, batch 64, nfilter 16, nf_max 512, noise 256,
      the bf16 R1 penalty (penalty_precision 16); afterwards one D loss from
      the trained weights at penalty precision 16 has an r1 within rel 0.05 of
      the same call at 32.
-Phases 7–10 run the 2D families through run_network_torch.main() at their
+Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
@@ -77,6 +90,7 @@ import csv
 import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -86,7 +100,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-FWD_ATOL = 1e-5
 BWD_RTOL = 1e-4
 #: F.grid_sample normalises the coordinates to [-1, 1] and back, which moves
 #: a sample by ~1e-5 at these magnitudes; a different function would be off
@@ -179,6 +192,8 @@ def compare(name, vox, coords, gen):
     from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
     got = kt.launch_forward(vox, coords)
     ref = grid_sample.trilinear_resample(vox, coords)
+    fwd_equal = torch.equal(got, ref)
+    fwd_again = torch.equal(got, kt.launch_forward(vox, coords))
     g = torch.randn(ref.shape, generator=gen, device="cuda")
     dgot = kt.launch_backward(coords, g, vox.shape)
     dref = grid_sample.trilinear_resample_vox_grad(coords, g, vox.shape)
@@ -189,11 +204,13 @@ def compare(name, vox, coords, gen):
     bwd_err = float((dgot - dref).abs().max())
     bwd_rel = bwd_err / float(dref.abs().max())
     print(f"{name}: vox {tuple(vox.shape)} points {coords.shape[1]}: "
-          f"fwd max|err| {fwd_err:.3e} (limit {FWD_ATOL:g}), "
+          f"fwd equal to plain: {fwd_equal} (max|err| {fwd_err:.3e}), "
+          f"bit-identical across two calls: {fwd_again}; "
           f"bwd max|err| {bwd_err:.3e} = {bwd_rel:.3e} of max|ref| "
           f"(limit {BWD_RTOL:g}); bwd bit-identical across two calls: "
           f"{again}, to ordered_vox_grad: {ordered}")
-    check(fwd_err <= FWD_ATOL, f"{name} forward error {fwd_err}")
+    check(fwd_equal, f"{name} forward differs from plain: {fwd_err}")
+    check(fwd_again, f"{name} forward differs between two calls")
     check(bwd_rel <= BWD_RTOL, f"{name} backward error {bwd_rel}")
     check(again, f"{name} backward differs between two calls")
     check(ordered, f"{name} backward differs from ordered_vox_grad")
@@ -216,13 +233,16 @@ def timings(vox, coords, gen):
     t["fwd_bwd"] = kb.median_ms(fwd_bwd(kt.trilinear_resample))
     t["fwd_bwd_plain"] = kb.median_ms(fwd_bwd(grid_sample.trilinear_resample))
     card = card_line()
+    bound = kb.trilinear_bound(vox.shape, coords.shape[1])
     for k in ("fwd", "bwd", "fwd_bwd"):
         lib = (f", F.grid_sample {t[k + '_library']:.4f} ms (max|err| "
                f"against the kernel {t[k + '_library_err']:.2e})"
                if k + "_library" in t else "")
-        print(f"time {k}: kernel {t[k]:.4f} ms, plain {t[k + '_plain']:.4f} "
-              f"ms{lib} (device time, median of 20, B=32 16^3x64 N=4096; "
-              f"{card})")
+        each = (f", bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})"
+                if k != "fwd_bwd" else "")
+        print(f"time {k}: kernel {t[k]:.4f} ms{each}, plain "
+              f"{t[k + '_plain']:.4f} ms{lib} (device time, median of 20, "
+              f"B=32 16^3x64 N=4096; {card})")
     for k in ("fwd", "bwd"):   # the yardstick computes the same function
         check(t[k + "_library_err"] <= LIBRARY_ATOL,
               f"F.grid_sample disagrees with the trilinear {k} kernel: "
@@ -406,6 +426,109 @@ def hologan_replay(cfg, out_dir):
           f"{torch.backends.cudnn.deterministic}): bit-identical {same}; "
           f"losses {runs[0][0]} vs {runs[1][0]}; {differ} of "
           f"{len(runs[0][1])} parameter tensors differ")
+
+
+def inception_on_card():
+    """The random-init FID Inception on the card against itself on the CPU
+    (f32, 4 images of 64 px); returns its images/s at a batch of 50."""
+    import copy
+    import torch
+    from lightning_gan_zoo_tpu_torch.eval import inception
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    model = inception.init_random()
+    x = torch.rand(4, 64, 64, 3, generator=torch.Generator().manual_seed(3))
+    ref = model(x)
+    card_model = copy.deepcopy(model).cuda()
+    got = card_model(x.cuda()).cpu()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"inception pool3, card against CPU (f32, 4 images): max|err| "
+          f"{err:.3e} = {err / scale:.3e} of max|ref| (limit 1e-3)")
+    check(tuple(got.shape) == (4, 2048), f"pool3 shape {tuple(got.shape)}")
+    check(err <= 1e-3 * scale, f"inception on the card disagrees: {err}")
+    batch = torch.rand(50, 64, 64, 3, device="cuda")
+    with torch.no_grad():
+        ms = kb.median_ms(lambda: card_model(batch), warmup=2, reps=5)
+    rate = 50 / (ms / 1e3)
+    print(f"inception: {ms:.2f} ms per batch of 50 (64 px → 299², f32), "
+          f"{rate:.1f} images/s (device time, median of 5; {card_line()})")
+    return rate
+
+
+#: the validation phase's fakes (the config's 5,000 cut to 1,000)
+VAL_SAMPLES = 1000
+
+
+def validation_phase():
+    """HoloGAN at the config's width with calc_fid=True: 2 supersteps and a
+    validation, then eval_only=true on its checkpoints."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+    from lightning_gan_zoo_tpu_torch.runtime import loop
+    seconds = []
+
+    class TimedTrainer(loop.Trainer):
+        def validate(self, global_step):
+            t0 = time.perf_counter()
+            out = super().validate(global_step)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+    argv = ["+expt=hologan", "dataset=synthetic", "calc_fid=True", "~figures",
+            "train.num_epochs=1", "dataset.n=192",
+            f"val.fid_n_samples={VAL_SAMPLES}"]
+    trainer, launches, wall, _ = run_main(argv + ["save_ckpts=True"], kt,
+                                          "hologan_fid", TimedTrainer)
+    ev, ev_launches, ev_wall, printed = run_main(
+        argv + ["eval_only=true",
+                f"train.ckpt_dir={trainer.logging_dir / 'ckpts'}"],
+        kt, "hologan_eval", TimedTrainer)
+    cfg = trainer.cfg
+    check(int(cfg.generator.in_planes) == 64 and int(cfg.precision) == 16
+          and int(cfg.train.batch_size) == 32,
+          "the validation phase did not run at the config's width")
+    n_super = int(cfg.dataset.n) // (int(cfg.train.batch_size) * 3)
+    fid_batches = -(-VAL_SAMPLES // trainer.metrics_eval.batch_size)
+    # the supersteps' 3 forwards each, the Fake grid, the FID batches
+    want = {"fwd": 3 * n_super + 1 + fid_batches, "bwd": 2 * n_super}
+    print(f"validation run: {n_super} supersteps and a validation in "
+          f"{wall:.1f} s; trilinear launches {launches} (expected {want}: "
+          f"{fid_batches} FID batches of {trainer.metrics_eval.batch_size})")
+    check(launches == want, f"launch counts {launches} != {want}")
+    with open(trainer.logger.csv_path) as f:
+        vals = [{k: float(r[k]) for k in ("fid_uncalibrated",
+                                          "kid_uncalibrated")}
+                for r in csv.DictReader(f) if r.get("fid_uncalibrated")]
+    check(len(vals) == 1 and all(map(math.isfinite, vals[0].values())),
+          f"validation metrics missing or not finite: {vals}")
+    ckpt_dir = trainer.logging_dir / "ckpts"
+    ckpts = sorted(ckpt_dir.iterdir())
+    check([p.name for p in ckpts] == ["model_epoch-0"],
+          f"checkpoints left: {[p.name for p in ckpts]}")
+    meta = json.loads((ckpts[0] / "train_meta.json").read_text())
+    check(meta.get("fid_calibrated") is False and meta.get("fid") is None
+          and meta.get("best_fid") == vals[0]["fid_uncalibrated"],
+          f"checkpoint meta {meta}")
+    line = re.search(r"^eval fid_uncalibrated=(\S+) kid_uncalibrated=(\S+)$",
+                     printed, re.M)
+    check(f"Resuming from {ckpts[0]}" in printed,
+          "the evaluation did not restore the checkpoint")
+    check(line is not None and all(math.isfinite(float(v))
+                                   for v in line.groups()),
+          "the evaluation printed no finite eval line")
+    check(not (ev.logging_dir / "ckpts").exists()
+          and [p.name for p in ckpt_dir.iterdir()] == ["model_epoch-0"],
+          "the evaluation wrote a checkpoint")
+    check(ev_launches == {"fwd": 1 + fid_batches, "bwd": 0},
+          f"evaluation launches {ev_launches}")
+    card = card_line()
+    print(f"validation: {vals[0]}, meta {meta}; eval: {line.group(0)} in "
+          f"{ev_wall:.1f} s, launches {ev_launches}")
+    n_real = trainer.metrics_eval._real_acts.shape[0]
+    print(f"validation seconds (fid_n_samples {VAL_SAMPLES}, {n_real} reals; "
+          f"host clock, synchronised): after training {seconds[0]:.2f}, "
+          f"eval_only {seconds[1]:.2f} ({card})")
+    return seconds
 
 
 def trunk_compare(name, gen, shape):
@@ -781,6 +904,8 @@ def main() -> int:
     tt = trunk_timings(gen)
     torch.cuda.empty_cache()
     tri_launches, tri_per = hologan_main_path()
+    inception_on_card()
+    validation_phase()
     torch.cuda.empty_cache()
     trunk_launches, trunk_per = pigan_main_path()
     for phase in (dcgan_main_path, wgan_main_path, wgan_gp_main_path,

@@ -1,5 +1,5 @@
-"""JAX → PyTorch weights for HoloGAN, π-GAN, the DCGAN family and the R1
-ResNet.
+"""JAX → PyTorch weights for HoloGAN, π-GAN, the DCGAN family, the R1
+ResNet and the FID Inception.
 
 Turns the JAX package's flax variable trees ({"params": ..., "spectral":
 ...}, leaves as numpy arrays — ``jax.device_get`` gives that) into the port's
@@ -204,6 +204,30 @@ def resnet_generator_state_dict(variables: Mapping
         sd.update(_resnet_block(p[f"ResnetBlock_{i}"], f"blocks.{i}"))
     sd.update(_resnet_block(p[f"ResnetBlock_{n - 1}"], "block_out"))
     sd.update(_conv(p["conv_img"], "conv_img"))
+    return sd
+
+
+def inception_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax FID Inception variables (params + batch_stats) →
+    eval.inception.InceptionV3FID state_dict: every ``…/conv/kernel`` HWIO
+    → ``….conv.weight`` OIHW, ``…/bn/scale`` and ``bias`` → ``….bn.weight``
+    and ``bias``, batch_stats ``mean`` / ``var`` → ``running_mean`` /
+    ``running_var``. The module names are the same in both frameworks."""
+    sd: Dict[str, torch.Tensor] = {}
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias",
+             "mean": "running_mean", "var": "running_var"}
+
+    def walk(tree: Mapping, prefix: str):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            elif k == "kernel":
+                sd[prefix + "weight"] = _t(np.asarray(v).transpose(3, 2, 0, 1))
+            else:
+                sd[prefix + names[k]] = _t(v)
+
+    walk(variables["params"], "")
+    walk(variables["batch_stats"], "")
     return sd
 
 

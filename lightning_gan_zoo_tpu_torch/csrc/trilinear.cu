@@ -14,15 +14,31 @@
 // 33.5 MB gradient, against ~0.1 GFLOP of arithmetic: memory-bound. One
 // sample's volume is 1 MB, so the eight corner reads of neighbouring points
 // hit L2 after the first touch and device memory sees each byte about once.
-// The design keeps every access coalesced: threads run along C, the
-// innermost axis of (B, D, H, W, C), so a warp reads 32 consecutive floats
-// of one corner and writes 32 consecutive floats of one output point. Each
-// block first computes the corner offsets and weights of its points once,
-// into shared memory, instead of once per channel.
+//
+// The forward is a gather with no tensor-core work, so its design is about
+// loads in flight and instructions per byte. Threads run along C, the
+// innermost axis of (B, D, H, W, C), in 16-byte float4 vectors where C % 4
+// == 0 (a scalar path of the same code otherwise): at C = 64 sixteen lanes
+// cover a point, so every corner read and every output write of a warp is
+// two 256-byte rows. Each thread takes one (point, vector) item and issues
+// its 8 corner loads, through the non-coherent path, before any arithmetic.
+// Each lane computes its point's corner setup in registers (the coordinates
+// are a broadcast read), so there is no shared-memory staging and no
+// barrier. The result leaves as streaming stores; blocks run sample-major
+// (gridDim.x walks one sample's points), so one sample's 1 MB volume stays
+// hot in L2 while its points are read. One item per thread was the fastest
+// on an H100 (PERF.md's stage table): 8 float4 loads in flight per thread at
+// 40 registers keep 64 warps on an SM, where 4 items take 160 registers and
+// a quarter of the warps. An L2 evict-last policy on the volume reads made
+// no measurable difference and is not used.
 //
 // Semantics (lightning_gan_zoo_tpu/ops/grid_sample.py:39-73): corner indices
 // are clamped to the volume from the UNCLAMPED floor, and the weights come
-// from the unclamped fractions. All arithmetic is f32.
+// from the unclamped fractions. All arithmetic is f32. The forward rounds
+// every product and every sum on its own (no FMA), each weight as
+// (g_x·g_y)·g_z and the eight terms summed left to right from the first, in
+// the order of ops/grid_sample.py::trilinear_resample: it equals the plain
+// version on the card bit for bit.
 //
 // The backward is deterministic: no float atomics, every voxel's gradient
 // summed in one fixed order. The TPU kernel summed its point tiles into one
@@ -61,12 +77,12 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTilePoints = 64;  // points per block of the forward
 constexpr int kGroupPoints = 1024;  // points (and threads) of a sort group
 constexpr int kMaxVox = 16 * 1024;   // three int counts per voxel: 192 KB
 
@@ -99,34 +115,67 @@ __device__ __forceinline__ void corner_setup(float x, float y, float z,
   }
 }
 
-// grid (ceil(N / kTilePoints), B); block kThreads.
+// Σ_k t[k]·w[k], k = 0..7, each product and each sum rounded on its own,
+// summed left to right from the first term.
+__device__ __forceinline__ float corner_sum(const float* t, int stride,
+                                            const float* w) {
+  float acc = __fmul_rn(t[0], w[0]);
+#pragma unroll
+  for (int k = 1; k < 8; ++k)
+    acc = __fadd_rn(acc, __fmul_rn(t[k * stride], w[k]));
+  return acc;
+}
+
+// grid (ceil(N·C / (kVec·kThreads)), B); block kThreads. Item i of a sample
+// is vector j = i mod (C / kVec) of point i div (C / kVec).
+template <int kVec>
 __global__ void __launch_bounds__(kThreads)
 trilinear_fwd_kernel(const float* __restrict__ vox,
                      const float* __restrict__ coords,
                      float* __restrict__ out,
                      int D, int H, int W, int C, int N) {
-  __shared__ int s_idx[kTilePoints][8];
-  __shared__ float s_w[kTilePoints][8];
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kTilePoints;
-  const int np = min(kTilePoints, N - p0);
-  for (int p = threadIdx.x; p < np; p += blockDim.x) {
-    const float* q = coords + (static_cast<long long>(b) * N + p0 + p) * 3;
-    corner_setup(q[0], q[1], q[2], D, H, W, s_idx[p], s_w[p]);
-  }
-  __syncthreads();
-  const float* v = vox + static_cast<long long>(b) * D * H * W * C;
-  float* o = out + (static_cast<long long>(b) * N + p0) * C;
-  for (int i = threadIdx.x; i < np * C; i += blockDim.x) {
-    const int p = i / C, c = i - p * C;
-    float acc = 0.0f;
+  using Vec = typename std::conditional<kVec == 4, float4, float>::type;
+  const int b = blockIdx.y, cv = C / kVec, items = N * cv;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= items) return;
+  const Vec* v = reinterpret_cast<const Vec*>(vox) +
+                 static_cast<long long>(b) * D * H * W * cv;
+  const float* q = coords + static_cast<long long>(b) * N * 3;
+  const int p = i / cv, j = i - p * cv;
+  const float x = __ldg(q + 3 * p), y = __ldg(q + 3 * p + 1),
+              z = __ldg(q + 3 * p + 2);
+  const float x0 = floorf(x), y0 = floorf(y), z0 = floorf(z);
+  const int xl = static_cast<int>(x0), yl = static_cast<int>(y0),
+            zl = static_cast<int>(z0);
+  const int xs[2] = {min(max(xl, 0), W - 1), min(max(xl + 1, 0), W - 1)};
+  const int ys[2] = {min(max(yl, 0), H - 1), min(max(yl + 1, 0), H - 1)};
+  const int zs[2] = {min(max(zl, 0), D - 1), min(max(zl + 1, 0), D - 1)};
+  // every corner load first
+  Vec t[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      acc += __ldg(v + static_cast<long long>(s_idx[p][k]) * C + c)
-             * s_w[p][k];
-    }
-    o[i] = acc;
+  for (int c = 0; c < 8; ++c) {  // corner c = 4·z + 2·x + y
+    const int vi = (zs[c >> 2] * H + ys[c & 1]) * W + xs[(c >> 1) & 1];
+    t[c] = __ldg(v + static_cast<long long>(vi) * cv + j);
   }
+  const float fx = __fsub_rn(x, x0), fy = __fsub_rn(y, y0),
+              fz = __fsub_rn(z, z0);
+  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy),
+              gz = __fsub_rn(1.0f, fz);
+  const float xy[4] = {__fmul_rn(gx, gy), __fmul_rn(gx, fy),
+                       __fmul_rn(fx, gy), __fmul_rn(fx, fy)};
+  float w[8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    w[c] = __fmul_rn(xy[c], gz);
+    w[c + 4] = __fmul_rn(xy[c], fz);
+  }
+  Vec acc;
+  const float* tk = reinterpret_cast<const float*>(t);
+  float* a = reinterpret_cast<float*>(&acc);
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) a[u] = corner_sum(tk + u, kVec, w);
+  __stcs(reinterpret_cast<Vec*>(out) + static_cast<long long>(b) * items + i,
+         acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -304,21 +353,32 @@ trilinear_bwd_kernel(const float* __restrict__ g,
                           c) = res;
 }
 
-dim3 grid_for(int B, int N) {
-  return dim3((N + kTilePoints - 1) / kTilePoints, B);
+template <int kVec>
+int launch_fwd(const float* vox, const float* coords, float* out, int B,
+               int D, int H, int W, int C, int N, cudaStream_t s) {
+  const long long items = static_cast<long long>(N) * (C / kVec);
+  const dim3 grid(static_cast<unsigned>((items + kThreads - 1) / kThreads), B);
+  trilinear_fwd_kernel<kVec><<<grid, kThreads, 0, s>>>(vox, coords, out, D, H,
+                                                       W, C, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
+// float4 vectors where C % 4 == 0 and the volume and the output are 16-byte
+// aligned, single floats otherwise.
 extern "C" int lgzt_trilinear_fwd(const float* vox, const float* coords,
                                   float* out, int B, int D, int H, int W,
                                   int C, int N, void* stream) {
-  if (B > 0 && N > 0) {
-    trilinear_fwd_kernel<<<grid_for(B, N), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        vox, coords, out, D, H, W, C, N);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B <= 0 || N <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  if (C % 4 == 0 && aligned16(vox) && aligned16(out))
+    return launch_fwd<4>(vox, coords, out, B, D, H, W, C, N, s);
+  return launch_fwd<1>(vox, coords, out, B, D, H, W, C, N, s);
 }
 
 // cnt B·G·D·H·W ints (G = ceil(N / 1024)), off B·(D·H·W + 1) ints and map

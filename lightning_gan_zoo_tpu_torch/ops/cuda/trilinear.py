@@ -5,11 +5,12 @@ Replaces lightning_gan_zoo_tpu/ops/pallas/trilinear.py::trilinear_resample_mxu
 (forward ``_forward``, backward ``_backward_vox``). The kernels are memory-
 bound: at HoloGAN's shapes each pass moves a 33.5 MB f32 volume one way and
 a 33.5 MB point array the other, and does little arithmetic. The forward
-reads the corners coalesced along the channel axis, with the per-point
-corner setup shared in on-chip memory. The backward gathers rather than
-scatters: it builds an inverse map (each voxel's (point, corner) entries,
-sorted) in integer scratch, then sums every voxel's bin in that fixed order;
-the source sets this out.
+reads the corners as 16-byte vectors along the channel axis, a thread's
+eight corner loads all in flight before its arithmetic, and rounds as the
+plain version rounds, so it equals it bit for bit. The backward gathers
+rather than scatters: it builds an inverse map (each voxel's (point, corner)
+entries, sorted) in integer scratch, then sums every voxel's bin in that
+fixed order; the source sets this out.
 
 ``trilinear_resample`` is a ``torch.autograd.Function``:
   * a CUDA tensor launches the kernel or raises — there is no fallback;
@@ -73,7 +74,8 @@ def _raise_on(err: int, what: str):
 
 def launch_forward(voxels: torch.Tensor, coords: torch.Tensor
                    ) -> torch.Tensor:
-    """Kernel forward: (B,D,H,W,C) f32, (B,N,3) f32 → (B,N,C) f32."""
+    """Kernel forward: (B,D,H,W,C) f32, (B,N,3) f32 → (B,N,C) f32, equal
+    to the plain version bit for bit."""
     global FWD_LAUNCHES
     _check("voxels", voxels, 5, voxels.device)
     if voxels.device.type != "cuda":
@@ -81,11 +83,15 @@ def launch_forward(voxels: torch.Tensor, coords: torch.Tensor
                          f"got {voxels.device}")
     b, d, h, w, c = voxels.shape
     n = _check_coords(coords, b, voxels.device)
+    if max(n, d * h * w) * c >= 2 ** 31:
+        raise ValueError(f"trilinear kernel: {n} points or {d * h * w} "
+                         f"voxels × {c} channels overflow its int32 index")
     out = torch.empty((b, n, c), dtype=torch.float32, device=voxels.device)
     with torch.cuda.device(voxels.device):
         err = load_library().lgzt_trilinear_fwd(
             voxels.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            b, d, h, w, c, n, torch.cuda.current_stream().cuda_stream)
+            b, d, h, w, c, n,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "forward")
     FWD_LAUNCHES += 1
     return out

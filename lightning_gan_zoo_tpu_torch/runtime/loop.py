@@ -22,10 +22,18 @@ what the dataset can fill, so each epoch sees the same images as in JAX;
 the JAX package's gain from folding, one dispatch for K supersteps, is not
 reproduced here.
 
-Features of the JAX Trainer that are not ported yet (FID/KID, figures,
-eval_only, asynchronous checkpoints, the preemption rescue, multi-device
-axes, profiling) raise NotImplementedError when switched on; none is
-skipped quietly.
+With ``calc_fid`` (and ``val.use_fid``) every validation also computes
+FID and KID (eval/metrics_callback.py) and keeps the best-FID checkpoint by
+the JAX Trainer's rules: a checkpoint is saved when there is no FID yet or
+when the selection FID (``fid``, else ``fid_uncalibrated``) is lower than
+the best so far; only a calibrated FID names it; its meta carries
+``best_fid`` and ``fid_calibrated``, and a resume restores the threshold
+unless the calibration flipped. ``eval_only=true`` (``evaluate``) restores
+train.ckpt_dir and runs one validation without training or saving.
+
+Features of the JAX Trainer that are not ported yet (figures, asynchronous
+checkpoints, the preemption rescue, multi-device axes, profiling) raise
+NotImplementedError when switched on; none is skipped quietly.
 """
 from __future__ import annotations
 
@@ -50,14 +58,10 @@ from .steps import microbatch_count, superstep
 def unported_features(cfg: Config) -> List[str]:
     """The switched-on config features this package cannot run yet."""
     found = []
-    if cfg.get("calc_fid", False) and cfg.val.get("use_fid", True):
-        found.append("calc_fid=True (FID/KID; pass calc_fid=False)")
     if cfg.get("save_ckpts_async", False):
         found.append("save_ckpts_async=true (asynchronous checkpoints)")
     if cfg.get("figures"):
         found.append("figure callbacks (pass '~figures')")
-    if cfg.get("eval_only", False):
-        found.append("eval_only=true")
     if (cfg.get("nerf") or {}).get("remat", False):
         found.append("nerf.remat=true")
     for key in ("num_gpus", "num_sp", "num_tp"):
@@ -115,13 +119,22 @@ class Trainer:
         self.logging_dir = out_root / cfg.name / self.version
         self.logger = ExperimentLogger(self.logging_dir)
         # new checkpoints land in this run's directory; train.ckpt_dir is
-        # only scanned for the resume
-        self.ckpt = CheckpointManager(self.logging_dir / "ckpts",
-                                      save_ckpts=bool(cfg.get("save_ckpts",
-                                                              True)))
+        # only scanned for the resume; an evaluation (eval_only) writes
+        # none and makes no checkpoint directory
+        self.ckpt = CheckpointManager(
+            self.logging_dir / "ckpts",
+            save_ckpts=bool(cfg.get("save_ckpts", True))
+            and not bool(cfg.get("eval_only", False)))
         self.ema_decay = float(cfg.train.get("ema_decay") or 0.0)
         self.task = instantiate(cfg.model.lm, cfg, str(self.logging_dir),
                                 device=self.device)
+        self.metrics_eval = None
+        if bool(cfg.get("calc_fid", False)) and bool(cfg.val.get("use_fid",
+                                                                 True)):
+            from ..eval.metrics_callback import InceptionMetrics
+            self.metrics_eval = InceptionMetrics(
+                cfg, self.task, self.device, logging_dir=str(self.logging_dir))
+        self.best_fid = float("inf")
         self.disc_freq = int(cfg.optimisation.disc_freq)
         self.gen_freq = int(cfg.optimisation.gen_freq)
         self.current_batch_size = self._initial_batch_size()
@@ -265,6 +278,7 @@ class Trainer:
         payload, meta = CheckpointManager.restore(path)
         self.load_checkpoint_payload(payload)
         self.epoch = int(meta["epoch"]) + 1
+        self.best_fid = self._restored_best_fid(meta)
         print(f"Resuming from {path} at epoch {self.epoch}, step "
               f"{self.state.step}", flush=True)
         resumed_at = self.epoch
@@ -272,6 +286,33 @@ class Trainer:
             self.epoch = e
             self._update_epoch_schedules(replay=True)
         self.epoch = resumed_at
+
+    def _restored_best_fid(self, meta: dict) -> float:
+        """The best-FID threshold of a checkpoint's meta (``best_fid``, else
+        ``fid``; 0.0 is a FID, not "unset"). Calibrated and uncalibrated FIDs
+        are different scales, so a threshold saved under the other
+        calibration is dropped; a meta without ``fid_calibrated`` counts as
+        calibrated exactly when it has a ``fid``."""
+        bf = meta.get("best_fid")
+        if bf is None:
+            bf = meta.get("fid")
+        cal_saved = meta.get("fid_calibrated")
+        if cal_saved is None:
+            cal_saved = meta.get("fid") is not None
+        cal_now = self._fid_calibrated()
+        if bf is not None and cal_now is not None \
+                and bool(cal_saved) != cal_now:
+            print(f"[resume] FID calibration changed ({cal_saved} → "
+                  f"{cal_now}); resetting the best-FID selection threshold")
+            bf = None
+        return float(bf) if bf is not None else float("inf")
+
+    def _fid_calibrated(self) -> Optional[bool]:
+        """Whether the FID evaluator has the FID weights; None without an
+        evaluator."""
+        if self.metrics_eval is None:
+            return None
+        return bool(self.metrics_eval.calibrated)
 
     # ------------------------------------------------------------ train
     def fit(self):
@@ -319,11 +360,26 @@ class Trainer:
                 self.validate(self.state.step)
             self.epoch += 1
 
-    def validate(self, global_step: int):
+    def evaluate(self) -> Dict[str, float]:
+        """``eval_only=true``: restore train.ckpt_dir (the same resume scan
+        as training) and run one validation, with no training and no
+        checkpoint written (the constructor turned saving off). Returns the
+        validation's metrics."""
+        self.state = create_train_state(self.task, steps_per_epoch=1,
+                                        ema=self.ema_decay > 0.0)
+        self.resume()
+        if self.state.step == 0:
+            print("[eval] no checkpoint restored (train.ckpt_dir unset or "
+                  "empty): evaluating the random initialisation")
+        return self.validate(self.state.step)
+
+    def validate(self, global_step: int) -> Dict[str, float]:
         """Real grid from the val set (skipped, as in the JAX Trainer, when
-        the split is missing); Fake grid from the fixed noise; with
-        save_ckpts, a checkpoint. Without FID every validation counts as an
-        improvement, so the latest epoch's checkpoint is the one kept."""
+        the split is missing); Fake grid from the fixed noise; with an FID
+        evaluator, FID and KID; with save_ckpts, the best-FID checkpoint.
+        Without FID every validation counts as an improvement, so the
+        latest epoch's checkpoint is the one kept. Returns the FID/KID
+        metrics (empty without an evaluator)."""
         cfg = self.cfg
         mean, std = cfg.train.data_mean, cfg.train.data_std
         try:
@@ -334,12 +390,33 @@ class Trainer:
                 global_step)
         except FileNotFoundError as e:
             print(f"[val] no val dataset: {e}")
+        params = self.state.eval_g_params(self.task.generator)
         fake = self.task.generate(
             self._fixed_noise, generator=self._generator(10_000 + self.epoch),
-            params=self.state.eval_g_params(self.task.generator))
+            params=params)
         fake = fake.permute(0, 2, 3, 1).cpu().numpy()
         self.logger.log_image(
             "Fake", make_grid(unnormalise(fake[..., :3], mean, std), ncol=8),
             global_step)
-        self.ckpt.save_best(self.checkpoint_payload(), epoch=self.epoch,
-                            fid=None, meta={"best_fid": None})
+        metrics: Dict[str, float] = {}
+        if self.metrics_eval is not None:
+            metrics = self.metrics_eval.compute(
+                params, self._generator(10_000 + self.epoch))
+            self.logger.log_scalars(metrics, global_step)
+            print("  " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()),
+                  flush=True)
+        # the best-FID policy: selection on the uncalibrated FID where there
+        # are no weights (self-consistent within a run), but only a
+        # calibrated FID names a checkpoint
+        fid = metrics.get("fid")
+        fid_sel = fid if fid is not None else metrics.get("fid_uncalibrated")
+        improved = fid_sel is None or fid_sel < self.best_fid
+        if improved and fid_sel is not None:
+            self.best_fid = fid_sel
+        if improved:
+            self.ckpt.save_best(
+                self.checkpoint_payload(), epoch=self.epoch, fid=fid,
+                meta={"best_fid": (self.best_fid
+                                   if self.best_fid != float("inf") else None),
+                      "fid_calibrated": self._fid_calibrated()})
+        return metrics

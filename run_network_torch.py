@@ -11,7 +11,10 @@ Same override grammar and the same ``conf/`` tree as run_network.py:
 group file into a package node, and ``--cfg job`` prints the composed config
 and exits. ``--device`` (default ``cuda``) names the torch device; without a
 CUDA device ``--device cuda`` fails, it never falls back to the CPU.
-Features the port has not reached yet fail with a "not yet ported" error.
+``eval_only=true train.ckpt_dir=<run>/ckpts`` evaluates a saved run once
+(FID/KID with ``calc_fid``) and prints ``eval k=v …``; it trains and saves
+nothing. Features the port has not reached yet fail with a "not yet
+ported" error.
 """
 from __future__ import annotations
 
@@ -77,6 +80,12 @@ def main(argv=None) -> int:
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if bool(cfg.get("eval_only", False)):
+        metrics = trainer.evaluate()
+        if metrics:
+            print("eval " + " ".join(f"{k}={v:.4f}"
+                                     for k, v in sorted(metrics.items())))
+        return 0
     trainer.fit()
     return 0
 

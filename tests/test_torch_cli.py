@@ -99,8 +99,6 @@ def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
-    (["calc_fid=True"], "calc_fid"),
-    (["eval_only=true"], "eval_only"),
     (["+expt=anigan"], "not yet ported"),
     (["num_sp=2"], "num_sp"),
     (["save_ckpts_async=true"], "save_ckpts_async"),

@@ -42,7 +42,9 @@ def test_kernel_matches_plain(gen, b, d, h, w, c, n):
            - 2).contiguous()                   # 2 voxels outside each side
     got = kt.launch_forward(vox, pts)
     ref = grid_sample.trilinear_resample(vox, pts)
-    assert float((got - ref).abs().max()) <= 1e-5
+    # the forward rounds where the plain version rounds
+    assert torch.equal(got, ref)
+    assert torch.equal(got, kt.launch_forward(vox, pts))
     g = torch.randn(got.shape, generator=gen, device="cuda")
     dv = kt.launch_backward(pts, g, vox.shape)
     dref = grid_sample.trilinear_resample_vox_grad(pts, g, vox.shape)
@@ -51,6 +53,20 @@ def test_kernel_matches_plain(gen, b, d, h, w, c, n):
     # no atomics: the same bits every call, those of the kernel's order
     assert torch.equal(dv, kt.launch_backward(pts, g, vox.shape))
     assert torch.equal(dv, kt.ordered_vox_grad(pts, g, vox.shape))
+
+
+@pytest.mark.parametrize("c", [1, 4, 5, 8, 64])
+def test_forward_equals_plain_bit_for_bit(gen, c):
+    """The float4 path (C % 4 == 0) and the scalar path (C = 1, 5), on a
+    ragged point count with points outside the volume: equal to the plain
+    version and across calls."""
+    vox = torch.randn(3, 6, 7, 8, c, generator=gen, device="cuda")
+    size = torch.tensor([8, 7, 6], device="cuda", dtype=torch.float32)
+    pts = (torch.rand(3, 777, 3, generator=gen, device="cuda") * (size + 6)
+           - 3).contiguous()
+    got = kt.launch_forward(vox, pts)
+    assert torch.equal(got, grid_sample.trilinear_resample(vox, pts))
+    assert torch.equal(got, kt.launch_forward(vox, pts))
 
 
 @pytest.mark.parametrize("c", [8, 3])
@@ -213,6 +229,24 @@ def test_batch_norm_under_bf16_autocast_matches_f32(gen, train):
         a, b = getattr(bn16, name), getattr(bn32, name)
         assert a.dtype == torch.float32
         assert float((a - b).abs().max()) <= 2.0 ** -8 * float(b.abs().max())
+
+
+def test_inception_on_the_card_matches_the_cpu(gen):
+    """The FID Inception's pool3 on the card in f32 (TF32 off for cuDNN's
+    convolutions, as the Trainer sets it) within 1e-3 of max|ref| of the
+    same network on the CPU."""
+    import copy
+    from lightning_gan_zoo_tpu_torch.eval import inception
+    model = inception.init_random()
+    x = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(3))
+    ref = model(x)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = copy.deepcopy(model).cuda()(x.cuda()).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
