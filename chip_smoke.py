@@ -22,14 +22,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      time split by the kernels it launches (torch.profiler);
   4. the SIREN trunk kernels against their plain version under the bf16
      policy, at π-GAN's shape (B=128, M=8192 fine points, H=256, 7 layers,
-     6 FiLM'd) and at a ragged, unfilmed shape (M=999, γ=1, β=0); forward
+     6 FiLM'd), at a ragged, unfilmed shape (M=999, γ=1, β=0) and at 45
+     input channels (ANIGAN's displacement deformer, both trunks); forward
      within 2⁻⁸ absolute (and the share of outputs that differ at all),
      every gradient group within 0.01 of its max|ref| (tighter than the JAX
      tests' 0.04 and 0.03: the kernels round where the plain version
      rounds), both directions bit-identical across two calls; then
      forward, backward and forward + backward through the autograd function
-     timed against plain at π-GAN's shape, and the backward's device time
-     split by the kernels it launches (torch.profiler);
+     timed against plain at π-GAN's shape and at 45 input channels, and
+     the backward's device time split by the kernels it launches
+     (torch.profiler);
   5. the HoloGAN main path: run_network_torch.main() trains HoloGAN at the
      config's full width (G in_planes 64, D out_planes 64, noise 128, batch
      32, 64 px, bf16) for 4 supersteps on synthetic data; the losses must be
@@ -44,24 +46,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      f32, TF32 off), and its images/s at the validation's batch of 50;
   6. the validation stage, as runs of its own so that the counts above
      stay exact: HoloGAN at the same width with calc_fid=True,
-     save_ckpts=True and val.fid_n_samples cut to 1,000 trains 2
-     supersteps and validates (FID/KID with the random-init Inception,
-     fakes generated through the trilinear kernel); fid_uncalibrated and
-     kid_uncalibrated must be finite, the checkpoint's meta carry best_fid
-     and fid_calibrated false, and the forward's launches count the
-     validation's 20 batches of 50; then eval_only=true on that run's
-     checkpoints prints `eval …`, writes no checkpoint and launches only
-     the validation's forwards; each validation's seconds are printed;
+     save_ckpts=True, val.fid_n_samples cut to 1,000 and the config's six
+     figures on (their drawing gated on the first FID, as a user runs it)
+     trains 2 supersteps and validates (FID/KID with the random-init
+     Inception, fakes and figures generated through the trilinear kernel);
+     fid_uncalibrated and kid_uncalibrated must be finite, the checkpoint's
+     meta carry best_fid and fid_calibrated false, every figure file exist
+     (a GIF drawn as 2 × 40 frames), and the forward's launches count the
+     validation's 20 batches of 50 and each figure's generator calls; then
+     eval_only=true on that run's checkpoints prints `eval …`, draws the
+     figures again, writes no checkpoint and launches only the
+     validation's forwards; each validation's seconds and its figures'
+     are printed;
   7. the π-GAN main path: run_network_torch.main() trains π-GAN with its
      machine=small config (SIREN 256 × 6, noise 128, 16 + 16 points, D
      init_chan 64, bf16) through its three resolutions (16, 32, 64 px at
      batches 128, 32, 8, ×4 accumulation in the last epoch, fold_steps 8
-     clamped to the 512 images); per epoch the losses must be finite; the
-     trunk launch counts must be exactly what the path implies, and the
-     trained generator through the kernels must match its plain-trunk twin;
+     clamped to the 512 images), its SampleGrid figure drawn at every
+     validation (the AniganTurntable that machine=small adds is left out:
+     π-GAN's data has no shape analyses); per epoch the losses must be
+     finite; the trunk launch counts must be exactly what the path
+     implies, and the trained generator through the kernels must match its
+     plain-trunk twin;
   8. dc_gan on MNIST-format data: idx files of procedural digits written
      with numpy under build/, 1 channel, 64 px, batch 128, features 64,
-     bf16, G weight EMA 0.999; two epochs with checkpoints leave exactly
+     bf16, G weight EMA 0.999, its SampleGrid and Interpolation figures
+     drawn at every validation; two epochs with checkpoints leave exactly
      model_epoch-1, then a second run resumes from that directory to epoch
      3: it must print the resume, start at epoch 2, continue the step count,
      and hold the saved state bit for bit right after the restore;
@@ -72,7 +82,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  11. gan_stability_r1: 128 px, batch 64, nfilter 16, nf_max 512, noise 256,
      the bf16 R1 penalty (penalty_precision 16); afterwards one D loss from
      the trained weights at penalty precision 16 has an r1 within rel 0.05 of
-     the same call at 32.
+     the same call at 32;
+ 12. ANIGAN through run_network_torch.main() with its machine=small config
+     (SIREN 256 × 6, noise 128, 16 + 16 points, D init_chan 64, bf16, the
+     TPS deformer) through the π-GAN phase's three resolutions, on 512
+     procedural analysed images written with numpy under build/ (64 px, an
+     icosphere mesh of 642 vertices and 1,280 faces per image,
+     data/procedural.py): per epoch d_loss, g_loss, r1 and silhouette must
+     be finite; every parameter on the card; both trunks' launches exactly
+     what the path implies (each field evaluation runs two trunks); the
+     trained generator through the kernels must match its plain-trunk twin
+     on analysed inputs; FullShapeAnalysis, SampleGrid and AniganTurntable
+     land under figures/epoch_<n>/ every epoch;
+ 13. ANIGAN with deformer=displacement at the same width for one epoch:
+     both trunks take 45 input channels through the kernels, with the same
+     checks of losses and launches.
 Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
@@ -120,9 +144,18 @@ TRUNK_REPLACES = {
     "fwd": "lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py:220",
     "bwd": "lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py:271"}
 TRUNK_RAGGED = dict(b=3, m=999, h=256, layers=7, n_film=1, unfilmed=True)
+TRUNK_CIN45_RAGGED = dict(b=3, m=999, h=256, layers=7, n_film=1,
+                          unfilmed=True, cin=45)
 PIGAN_ARGV = ["+expt=pigan", "machine=small", "dataset=synthetic",
-              "~figures", "resolution_annealing.update_epochs=[1,2]",
+              "~figures.anigan_turntable",
+              "resolution_annealing.update_epochs=[1,2]",
               "train.num_epochs=3", "dataset.n=512"]
+#: ANIGAN's analysed data (procedural) and its runs
+ANIGAN_ROOT = REPO / "build" / "chip_smoke_birds"
+ANIGAN_IMAGES = 512
+ANIGAN_ARGV = ["+expt=anigan", "machine=small",
+               "resolution_annealing.update_epochs=[1,2]",
+               "train.num_epochs=3"]
 #: the trained π-GAN generator through the kernels against its plain-trunk
 #: twin, RGBA in [0, 1]: a trunk output whose bf16 rounding flips moves by
 #: one bf16 step (≤ 0.004), and the 256-wide heads and the raymarch average
@@ -324,6 +357,40 @@ def run_main(argv, counter=None, tag="smoke", trainer_cls=None):
     return trainers[0], launches, wall, printed.getvalue()
 
 
+def figure_calls(trainer) -> int:
+    """Generator calls of one validation's figures, when all of them draw:
+    a grid or FullShapeAnalysis one, an interpolation or turntable one per
+    frame, a pose sweep one per FRAMES_PER_CALL steps or frames."""
+    from lightning_gan_zoo_tpu_torch.figures.types import FRAMES_PER_CALL
+    calls = 0
+    for fig in trainer.figures:
+        name = type(fig).__name__
+        if name in ("SampleGrid", "FullShapeAnalysis"):
+            calls += 1
+        elif name in ("Interpolation", "Interpolation3d", "AniganTurntable"):
+            calls += fig.n_frames
+        elif name in ("AzimuthStep", "ElevationStep"):
+            calls += -(-fig.n_steps // FRAMES_PER_CALL)
+        else:                                  # AzimuthGif, ElevationGif
+            calls += -(-fig.n_frames // FRAMES_PER_CALL)
+    return calls
+
+
+def check_figures(folder, names, trainer):
+    """Every figure file ``names`` under ``folder``; each animation drawn
+    forwards then backwards (2·n_frames frames; the turntable n_frames)."""
+    have = {p.name for p in Path(folder).iterdir()} if Path(folder).is_dir() \
+        else set()
+    check(set(names) <= have, f"figures under {folder}: {sorted(have)}")
+    for fig in trainer.figures:
+        if isinstance(fig.last_artefact, list):
+            n = fig.n_frames * (1 if type(fig).__name__ == "AniganTurntable"
+                                else 2)
+            check(len(fig.last_artefact) == n,
+                  f"{type(fig).__name__} drew {len(fig.last_artefact)} "
+                  f"frames, not {n}")
+
+
 def epoch_rows(trainer, keys):
     """metrics.csv's rows, each checked for finite ``keys``."""
     with open(trainer.logger.csv_path) as f:
@@ -464,7 +531,7 @@ def validation_phase():
     import torch
     from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
     from lightning_gan_zoo_tpu_torch.runtime import loop
-    seconds = []
+    seconds, fig_seconds = [], []
 
     class TimedTrainer(loop.Trainer):
         def validate(self, global_step):
@@ -474,7 +541,14 @@ def validation_phase():
             seconds.append(time.perf_counter() - t0)
             return out
 
-    argv = ["+expt=hologan", "dataset=synthetic", "calc_fid=True", "~figures",
+        def _draw_figures(self, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._draw_figures(*a)
+            torch.cuda.synchronize()
+            fig_seconds.append(time.perf_counter() - t0)
+
+    argv = ["+expt=hologan", "dataset=synthetic", "calc_fid=True",
             "train.num_epochs=1", "dataset.n=192",
             f"val.fid_n_samples={VAL_SAMPLES}"]
     trainer, launches, wall, _ = run_main(argv + ["save_ckpts=True"], kt,
@@ -489,12 +563,21 @@ def validation_phase():
           "the validation phase did not run at the config's width")
     n_super = int(cfg.dataset.n) // (int(cfg.train.batch_size) * 3)
     fid_batches = -(-VAL_SAMPLES // trainer.metrics_eval.batch_size)
-    # the supersteps' 3 forwards each, the Fake grid, the FID batches
-    want = {"fwd": 3 * n_super + 1 + fid_batches, "bwd": 2 * n_super}
+    figs = figure_calls(trainer)
+    # the supersteps' 3 forwards each, the Fake grid, the FID batches and
+    # the figures' generator calls (the first FID gates them: they draw)
+    want = {"fwd": 3 * n_super + 1 + fid_batches + figs, "bwd": 2 * n_super}
     print(f"validation run: {n_super} supersteps and a validation in "
           f"{wall:.1f} s; trilinear launches {launches} (expected {want}: "
-          f"{fid_batches} FID batches of {trainer.metrics_eval.batch_size})")
+          f"{fid_batches} FID batches of {trainer.metrics_eval.batch_size}, "
+          f"{figs} figure calls)")
     check(launches == want, f"launch counts {launches} != {want}")
+    names = ("SampleGrid.png", "Interpolation3d.gif", "AzimuthStep.png",
+             "ElevationStep.png", "AzimuthGif.gif", "ElevationGif.gif")
+    check([type(f).__name__ for f in trainer.figures]
+          == [n.split(".")[0] for n in names], "HoloGAN's figures")
+    check_figures(trainer.logging_dir / "figures", names, trainer)
+    check_figures(ev.logging_dir / "figures", names, ev)
     with open(trainer.logger.csv_path) as f:
         vals = [{k: float(r[k]) for k in ("fid_uncalibrated",
                                           "kid_uncalibrated")}
@@ -519,7 +602,7 @@ def validation_phase():
     check(not (ev.logging_dir / "ckpts").exists()
           and [p.name for p in ckpt_dir.iterdir()] == ["model_epoch-0"],
           "the evaluation wrote a checkpoint")
-    check(ev_launches == {"fwd": 1 + fid_batches, "bwd": 0},
+    check(ev_launches == {"fwd": 1 + fid_batches + figs, "bwd": 0},
           f"evaluation launches {ev_launches}")
     card = card_line()
     print(f"validation: {vals[0]}, meta {meta}; eval: {line.group(0)} in "
@@ -527,8 +610,10 @@ def validation_phase():
     n_real = trainer.metrics_eval._real_acts.shape[0]
     print(f"validation seconds (fid_n_samples {VAL_SAMPLES}, {n_real} reals; "
           f"host clock, synchronised): after training {seconds[0]:.2f}, "
-          f"eval_only {seconds[1]:.2f} ({card})")
-    return seconds
+          f"eval_only {seconds[1]:.2f}; of which the six figures "
+          f"({figs} generator calls) {fig_seconds[0]:.2f} and "
+          f"{fig_seconds[1]:.2f} ({card})")
+    return launches, ev_launches
 
 
 def trunk_compare(name, gen, shape):
@@ -565,25 +650,24 @@ def trunk_compare(name, gen, shape):
     return fwd_err, bwd_err, max(rel.values())
 
 
-def trunk_timings(gen):
+def trunk_timings(gen, shape):
     from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
-    args, dy, w0s = kb.trunk_inputs(gen, **kb.TRUNK_SLICE)
+    args, dy, w0s = kb.trunk_inputs(gen, **shape)
     t = kb.trunk_times(args, dy, w0s)
     card = card_line()
     for k in ("fwd", "bwd", "fwd_bwd"):
         print(f"trunk time {k}: kernel {t[k]:.4f} ms (median of 20), plain "
               f"{t[k + '_plain']:.4f} ms (median of 5) (device time, "
-              f"{kb.TRUNK_SLICE}; {card})")
+              f"{shape}; {card})")
     t["bwd_split"] = kb.trunk_backward_split(args, dy, w0s)
     print_split("trunk backward", t["bwd_split"], card)
     return t
 
 
-def pigan_plan(cfg):
-    """(batch, accumulation, fold, supersteps) of each epoch, from the
-    config: the variable_batch_size and accumulation schedules, and
-    fold_steps clamped so a fold span fits the dataset."""
-    n = int(cfg.dataset.n)
+def pigan_plan(cfg, n):
+    """(batch, accumulation, fold, supersteps) of each epoch over ``n``
+    images, from the config: the variable_batch_size and accumulation
+    schedules, and fold_steps clamped so a fold span fits the dataset."""
     freq = int(cfg.optimisation.disc_freq) + int(cfg.optimisation.gen_freq)
     ups = list(cfg.resolution_annealing.update_epochs)
     sizes = list(cfg.variable_batch_size.batch_sizes)
@@ -599,6 +683,45 @@ def pigan_plan(cfg):
     return plan
 
 
+def nerf_launches(trainer, plan, trunks):
+    """(expected trunk launches of the run, per superstep at 16 px, (D, G)
+    micro-steps). A field evaluation runs ``trunks`` trunks (π-GAN 1,
+    ANIGAN 2). D micro-step: a coarse and a fine evaluation; G micro-step:
+    the same and the fine one's backward (the coarse pass runs without
+    grad); a validation: the Fake grid and each figure's generator calls,
+    two evaluations per ray chunk each."""
+    cfg = trainer.cfg
+    df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
+    d_micro = sum(s * df * a for _, a, _, s in plan)
+    g_micro = sum(s * gf * a for _, a, _, s in plan)
+    n_rays, chunk = int(cfg.train.img_size) ** 2, int(cfg.nerf.chunk_size)
+    val_chunks = -(-n_rays // chunk) if 0 < chunk < n_rays else 1
+    n_val = len(plan)       # val.every_n_epochs = 1
+    val_calls = 1 + figure_calls(trainer)
+    want = {"fwd": trunks * (2 * (d_micro + g_micro)
+                             + 2 * val_chunks * val_calls * n_val),
+            "bwd": trunks * g_micro}
+    accum = plan[0][1]
+    per_superstep = {"fwd": trunks * 2 * (df + gf) * accum,
+                     "bwd": trunks * gf * accum}
+    return want, per_superstep, (d_micro, g_micro)
+
+
+def print_nerf_epochs(trainer, plan, name, keys):
+    """Finite ``keys`` every epoch; prints each epoch's losses and
+    images/s."""
+    rows = epoch_rows(trainer, keys + ("perf/images_per_sec",))
+    check(len(rows) == len(plan), f"expected {len(plan)} epoch rows")
+    card = card_line()
+    for e, (row, (bs, accum, fold, n_super)) in enumerate(zip(rows, plan)):
+        print(f"{name} epoch {e} ({bs} x {accum} accum, fold {fold}, "
+              f"{n_super} supersteps): "
+              + " ".join(f"{k.split('/')[-1]} {row[k]:.4f}" for k in keys)
+              + f"; perf/images_per_sec {row['perf/images_per_sec']:.1f} "
+              f"(first epoch at its shape, allocator warm-up included; "
+              f"{card})")
+
+
 def pigan_main_path():
     import copy
     import torch
@@ -606,22 +729,12 @@ def pigan_main_path():
 
     trainer, launches, wall, _ = run_main(PIGAN_ARGV, st, "pigan")
     cfg, task = trainer.cfg, trainer.task
-    plan = pigan_plan(cfg)
-    df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
-    d_micro = sum(s * df * a for _, a, _, s in plan)
-    g_micro = sum(s * gf * a for _, a, _, s in plan)
-    n_rays, chunk = int(cfg.train.img_size) ** 2, int(cfg.nerf.chunk_size)
-    val_chunks = -(-n_rays // chunk) if 0 < chunk < n_rays else 1
-    n_val = len(plan)       # val.every_n_epochs = 1
-    # D micro-step: coarse + fine render; G micro-step: the same and one
-    # backward (the coarse pass runs without grad); validation: 2 per chunk
-    want = {"fwd": 2 * (d_micro + g_micro) + 2 * val_chunks * n_val,
-            "bwd": g_micro}
-    accum = plan[0][1]    # a superstep at 16 px, the trunk timings' shape
-    per_superstep = {"fwd": 2 * (df + gf) * accum, "bwd": gf * accum}
+    plan = pigan_plan(cfg, int(cfg.dataset.n))
+    want, per_superstep, micro = nerf_launches(trainer, plan, trunks=1)
     print(f"pigan main path: plan (batch, accum, fold, supersteps) per "
-          f"epoch {plan}; {d_micro} D and {g_micro} G micro-steps in "
-          f"{wall:.1f} s; trunk launches {launches} (expected {want})")
+          f"epoch {plan}; {micro[0]} D and {micro[1]} G micro-steps in "
+          f"{wall:.1f} s; trunk launches {launches} (expected {want}, "
+          f"{figure_calls(trainer)} figure calls per validation)")
     check(launches["fwd"] > 0 and launches["bwd"] > 0,
           "the pigan main path launched no trunk kernel")
     check(launches == want, f"trunk launch counts {launches} != {want}")
@@ -638,17 +751,11 @@ def pigan_main_path():
     for net in (task.generator, task.discriminator):
         check(all(p.is_cuda for p in net.parameters()),
               "a parameter is not on the card")
-    rows = epoch_rows(trainer, ("train/d_loss", "train/r1", "train/g_loss",
-                                "perf/images_per_sec"))
-    check(len(rows) == len(plan), f"expected {len(plan)} epoch rows")
-    card = card_line()
-    for e, (row, (bs, accum, fold, n_super)) in enumerate(zip(rows, plan)):
-        print(f"pigan epoch {e} ({bs} x {accum} accum, fold {fold}, "
-              f"{n_super} supersteps): d {row['train/d_loss']:.4f} r1 "
-              f"{row['train/r1']:.4f} g {row['train/g_loss']:.4f}; "
-              f"perf/images_per_sec {row['perf/images_per_sec']:.1f} "
-              f"(first epoch at its shape, allocator warm-up included; "
-              f"{card})")
+    print_nerf_epochs(trainer, plan, "pigan", ("train/d_loss", "train/r1",
+                                               "train/g_loss"))
+    for e in range(len(plan)):
+        check_figures(trainer.logging_dir / "figures" / f"epoch_{e}",
+                      ("SampleGrid.png",), trainer)
 
     # the trained generator through the kernels against its plain twin
     twin = copy.deepcopy(task.generator)
@@ -672,6 +779,117 @@ def pigan_main_path():
     check(err <= PIGAN_TWIN_ATOL,
           f"G through the trunk kernels disagrees with plain: {err}")
     return launches, per_superstep
+
+def anigan_data():
+    """The analysed data's config overrides (written once, under build/)."""
+    from lightning_gan_zoo_tpu_torch.data import procedural
+    t0 = time.perf_counter()
+    roots = procedural.write_analysed_birds(ANIGAN_ROOT, n=ANIGAN_IMAGES,
+                                            img_size=64)
+    print(f"anigan data: {ANIGAN_IMAGES} procedural analysed images (64 px, "
+          f"642 vertices, 1,280 faces) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return procedural.overrides(*roots)
+
+
+def check_anigan_run(trainer, launches, wall, plan, name):
+    """The width, the launches, the losses and the parameters of an
+    ANIGAN run; returns its launches per superstep."""
+    cfg, task = trainer.cfg, trainer.task
+    want, per_superstep, micro = nerf_launches(trainer, plan, trunks=2)
+    print(f"{name}: plan (batch, accum, fold, supersteps) per epoch {plan}; "
+          f"{micro[0]} D and {micro[1]} G micro-steps in {wall:.1f} s; trunk "
+          f"launches {launches} (expected {want}, two trunks per field "
+          f"evaluation, {figure_calls(trainer)} figure calls per "
+          f"validation)")
+    check(launches["fwd"] > 0 and launches["bwd"] > 0,
+          f"{name} launched no trunk kernel")
+    check(launches == want, f"{name} trunk launch counts {launches} != "
+          f"{want}")
+    nc = cfg.nerf
+    check(int(nc.siren_dim_hidden) == 256 and int(nc.siren_num_layers) == 6
+          and int(cfg.model.noise_dim) == 128
+          and int(nc.n_pts_per_ray) == 16 and int(nc.n_pts_per_ray_fine) == 16
+          and int(cfg.discriminator.init_chan) == 64
+          and int(cfg.precision) == 16,
+          f"{name} did not run at the config's full width")
+    for net in (task.generator, task.discriminator):
+        check(all(p.is_cuda for p in net.parameters()),
+              f"{name}: a parameter is not on the card")
+    print_nerf_epochs(trainer, plan, name, (
+        "train/d_loss", "train/r1", "train/g_loss", "train/silhouette"))
+    for e in range(len(plan)):
+        check_figures(trainer.logging_dir / "figures" / f"epoch_{e}",
+                      ("SampleGrid.png", "FullShapeAnalysis.png",
+                       "AniganTurntable.gif"), trainer)
+    return per_superstep
+
+
+def anigan_main_path(data):
+    """ANIGAN (TPS) through its three resolutions, then the trained
+    generator through the kernels against its plain-trunk twin."""
+    import copy
+    import torch
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
+    from lightning_gan_zoo_tpu_torch.runtime.loop import _dataset_kwargs
+
+    trainer, launches, wall, _ = run_main(ANIGAN_ARGV + data, st, "anigan")
+    cfg, task = trainer.cfg, trainer.task
+    plan = pigan_plan(cfg, ANIGAN_IMAGES)
+    check(type(task.generator.deformer).__name__ == "TPSDeformer",
+          "the anigan path's deformer is not TPS")
+    check([p[:3] for p in plan] == [(128, 1, 2), (32, 1, 8), (8, 4, 8)],
+          f"unexpected schedule {plan}")
+    check(task.training_resolution == 64, "training did not reach 64 px")
+    per_superstep = check_anigan_run(trainer, launches, wall, plan, "anigan")
+
+    # the trained generator on analysed inputs, through the kernels and
+    # through its plain-trunk twin
+    twin = copy.deepcopy(task.generator)
+    for trunk in (twin.nerf_renderer.rad_field.siren,
+                  twin.nerf_renderer.rad_field.alpha_siren):
+        trunk.fused = False
+    ds = instantiate(cfg.dataset.train, **_dataset_kwargs(cfg))
+    sa = {k: torch.from_numpy(v).cuda()
+          for k, v in ds.load(list(range(4)))["shape_analysis"].items()}
+    z = task.sample_z(4, generator=torch.Generator("cuda").manual_seed(5))
+    with torch.no_grad(), task.autocast():
+        kw = task.deformation_inputs(sa)
+        before = st.FWD_LAUNCHES
+        img = task.generator(z, train=False, **kw)
+        check(st.FWD_LAUNCHES - before == 4, "G did not run both trunks' "
+              "kernels in both passes")
+        img_plain = twin(z, train=False, **kw)
+        check(st.FWD_LAUNCHES - before == 4, "the twin ran the trunk kernel")
+    check(tuple(img.shape) == (4, 64, 64, 4), f"image shape {img.shape}")
+    check(bool(torch.isfinite(img).all()), "generated image not finite")
+    err = float((img - img_plain).abs().max())
+    print(f"trained anigan G (TPS), bf16, kernels vs plain trunks: max|err| "
+          f"{err:.3e} (limit {PIGAN_TWIN_ATOL:g})")
+    check(err <= PIGAN_TWIN_ATOL,
+          f"G through the trunk kernels disagrees with plain: {err}")
+    return launches, per_superstep
+
+
+def anigan_displacement_path(data):
+    """One epoch of ANIGAN with the displacement deformer: 45 input
+    channels into both trunks."""
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
+    argv = [a if not a.startswith("train.num_epochs") else
+            "train.num_epochs=1" for a in ANIGAN_ARGV]
+    trainer, launches, wall, _ = run_main(
+        argv + ["deformer=displacement"] + data, st, "anigan_displacement")
+    field = trainer.task.generator.nerf_renderer.rad_field
+    check(type(field.deformer).__name__ == "DisplacementDeformer"
+          and field.siren.layers[0].kernel.shape[0] == 45
+          and field.alpha_siren.layers[0].kernel.shape[0] == 45,
+          "the displacement run's trunks do not take 45 channels")
+    check_anigan_run(trainer, launches, wall,
+                     pigan_plan(trainer.cfg, ANIGAN_IMAGES),
+                     "anigan displacement")
+    return launches
+
 
 # ------------------------------------------------------------ 2D families
 #: the smoke's MNIST-format data: procedural digits, written as idx files
@@ -749,7 +967,8 @@ def dcgan_main_path():
     write_mnist(n_train=1024, n_val=64)
     argv = ["+expt=dc_gan", "dataset=mnist",
             f"filepaths.mnist_parent_directory={MNIST_ROOT}",
-            "calc_fid=False", "~figures", "train.ema_decay=0.999"]
+            "calc_fid=False", "figure_details.fid_callback=False",
+            "train.ema_decay=0.999"]
     widths = {"train.img_size": 64, "train.batch_size": 128,
               "train.features_disc": 64, "train.features_gen": 64,
               "train.channels_img": 1, "model.noise_dim": 100,
@@ -760,6 +979,8 @@ def dcgan_main_path():
     print(f"dc_gan: 2 epochs of 4 supersteps in {wall:.1f} s, kernel "
           f"launches {launches}")
     check_2d_run(first, "dc_gan", widths, keys)
+    figures = ("SampleGrid.png", "Interpolation.gif")
+    check_figures(first.logging_dir / "figures", figures, first)
     ckpt_dir = first.logging_dir / "ckpts"
     names = sorted(p.name for p in ckpt_dir.iterdir())
     check(names == ["model_epoch-1"], f"checkpoints left: {names}")
@@ -799,6 +1020,7 @@ def dcgan_main_path():
           f"step {saved_step}, state bit-identical after the restore; "
           f"epoch 2 in {wall:.1f} s")
     check_2d_run(second, "dc_gan resumed", widths, keys)
+    check_figures(second.logging_dir / "figures", figures, second)
 
 
 def same_state(a, b) -> bool:
@@ -900,22 +1122,36 @@ def main() -> int:
     tri_bound = kb.trilinear_bound(slice_vox.shape, slice_pts.shape[1])
     del slice_vox, slice_pts
     tr_errs = [trunk_compare("slice", gen, kb.TRUNK_SLICE),
-               trunk_compare("ragged", gen, TRUNK_RAGGED)]
-    tt = trunk_timings(gen)
+               trunk_compare("ragged", gen, TRUNK_RAGGED),
+               trunk_compare("cin45", gen, kb.TRUNK_CIN45),
+               trunk_compare("cin45 ragged", gen, TRUNK_CIN45_RAGGED)]
+    tt = trunk_timings(gen, kb.TRUNK_SLICE)
+    tt45 = trunk_timings(gen, kb.TRUNK_CIN45)
     torch.cuda.empty_cache()
     tri_launches, tri_per = hologan_main_path()
     inception_on_card()
-    validation_phase()
+    val_launches, eval_launches = validation_phase()
     torch.cuda.empty_cache()
     trunk_launches, trunk_per = pigan_main_path()
     for phase in (dcgan_main_path, wgan_main_path, wgan_gp_main_path,
                   r1_main_path):
         torch.cuda.empty_cache()
         phase()
+    torch.cuda.empty_cache()
+    data = anigan_data()
+    anigan_launches, anigan_per = anigan_main_path(data)
+    torch.cuda.empty_cache()
+    disp_launches = anigan_displacement_path(data)
 
+    tri_paths = {"hologan": tri_launches, "hologan_validation": val_launches,
+                  "hologan_eval_only": eval_launches}
+    trunk_paths = {"pigan": trunk_launches, "anigan": anigan_launches,
+                   "anigan_displacement": disp_launches}
     kernels = [
         {"name": f"trilinear_{k}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": tri_launches[k],
+         "replaces": REPLACES[k],
+         "launches": sum(p[k] for p in tri_paths.values()),
+         "launches_by_path": {n: p[k] for n, p in tri_paths.items()},
          "launches_per_superstep": tri_per[k], "max_abs_err": max(e),
          "ms": t[k], "plain_ms": t[k + "_plain"], **tri_bound,
          "library_ms": t[k + "_library"]}
@@ -924,17 +1160,24 @@ def main() -> int:
     trunk_shape = {k: kb.TRUNK_SLICE[k] for k in ("b", "m", "h", "layers")}
     kernels += [
         {"name": f"siren_trunk_{k}", "route": "cuda", "source": TRUNK_SOURCE,
-         "replaces": TRUNK_REPLACES[k], "launches": trunk_launches[k],
-         "launches_per_superstep": trunk_per[k],
+         "replaces": TRUNK_REPLACES[k],
+         "launches": sum(p[k] for p in trunk_paths.values()),
+         "launches_by_path": {n: p[k] for n, p in trunk_paths.items()},
+         "launches_per_superstep": {"pigan": trunk_per[k],
+                                    "anigan": anigan_per[k]},
          "max_abs_err": max(e[i] for e in tr_errs), "ms": tt[k],
          "plain_ms": tt[k + "_plain"],
          **kb.trunk_bound(**trunk_shape, backward=k == "bwd"),
-         "library_ms": None}
+         "library_ms": None,
+         "cin45": {"ms": tt45[k], "plain_ms": tt45[k + "_plain"],
+                   **kb.trunk_bound(**trunk_shape, cin=45,
+                                    backward=k == "bwd")}}
         for i, k in enumerate(("fwd", "bwd"))]
     # the backward's groups are sums over a million rows; its bound is
     # relative to each group's largest value
     kernels[-1]["max_rel_err"] = max(e[2] for e in tr_errs)
     kernels[-1]["split_ms"] = tt["bwd_split"]
+    kernels[-1]["cin45"]["split_ms"] = tt45["bwd_split"]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card_line())

@@ -1,5 +1,5 @@
-"""JAX → PyTorch weights for HoloGAN, π-GAN, the DCGAN family, the R1
-ResNet and the FID Inception.
+"""JAX → PyTorch weights for HoloGAN, π-GAN, ANIGAN, the DCGAN family, the
+R1 ResNet and the FID Inception.
 
 Turns the JAX package's flax variable trees ({"params": ..., "spectral":
 ...}, leaves as numpy arrays — ``jax.device_get`` gives that) into the port's
@@ -17,7 +17,13 @@ Layout rules, each pinned by tests/test_torch_convert.py:
   * Spectral-norm ``u`` carries across from the "spectral" collection.
   * The discriminator flattens in NHWC order in both frameworks, so its
     Dense rows need no permutation.
-  * π-GAN's SIREN layers keep flax's (in, out) kernel as it is.
+  * π-GAN's SIREN layers keep flax's (in, out) kernel as it is; ANIGAN's
+    field adds the unfilmed ``alpha_siren`` trunk and, under the generator's
+    top-level ``deformer``, the deformer's own parameters.
+  * flax's LSTMCell keeps eight gate denses, ``i{i,f,g,o}`` on the input
+    (no bias) and ``h{i,f,g,o}`` on the carry; torch's LSTMCell stacks
+    them in the same gate order into ``weight_ih`` / ``weight_hh`` /
+    ``bias_hh``, with ``bias_ih`` zero.
   * CoordConv: the coordinate channels follow the image channels in both
     frameworks, so HWIO → OIHW is the whole conversion.
   * BatchNorm: params scale / bias → weight / bias, batch_stats mean / var
@@ -118,13 +124,62 @@ def pigan_generator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     pre = "nerf_renderer.rad_field"
     sd = _mapping(p["MappingNetwork_0"], f"{pre}.mapping")
     sd.update(_mapping(p["rgb_mapping"], f"{pre}.rgb_mapping"))
-    trunk = p["SirenNet_0"]
-    for i in range(len(trunk)):
-        sd.update(_siren(trunk[f"Siren_{i}"]["Dense_0"],
-                         f"{pre}.siren.layers.{i}"))
+    sd.update(_siren_net(p["SirenNet_0"], f"{pre}.siren"))
     sd.update(_dense(p["to_alpha"], f"{pre}.to_alpha"))
     sd.update(_siren(p["to_rgb_siren"]["Dense_0"], f"{pre}.to_rgb_siren"))
     sd.update(_dense(p["to_rgb"], f"{pre}.to_rgb"))
+    return sd
+
+
+def _siren_net(p: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(p)):
+        sd.update(_siren(p[f"Siren_{i}"]["Dense_0"], f"{prefix}.layers.{i}"))
+    return sd
+
+
+def deformer_state_dict(p: Mapping, prefix: str = ""
+                        ) -> Dict[str, torch.Tensor]:
+    """A flax ANIGAN deformer's params → anigan.deformer state_dict entries
+    under ``prefix``. TPS, RBF, Kernel and Displacement have none."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "lstm" in p:                         # LSTMDeformer
+        for name in ("offset_dense1", "offset_dense2", "out_affine"):
+            sd.update(_dense(p[name], f"{prefix}{name}"))
+        cell = p["lstm"]
+        gates = "ifgo"
+        sd[f"{prefix}lstm.weight_ih"] = torch.cat(
+            [_t(np.asarray(cell[f"i{g}"]["kernel"]).T) for g in gates])
+        sd[f"{prefix}lstm.weight_hh"] = torch.cat(
+            [_t(np.asarray(cell[f"h{g}"]["kernel"]).T) for g in gates])
+        sd[f"{prefix}lstm.bias_hh"] = torch.cat(
+            [_t(cell[f"h{g}"]["bias"]) for g in gates])
+        sd[f"{prefix}lstm.bias_ih"] = torch.zeros_like(
+            sd[f"{prefix}lstm.bias_hh"])
+    elif "offset_mlp_0" in p:               # SirenDeformer
+        for i in range(4):
+            sd.update(_dense(p[f"offset_mlp_{i}"], f"{prefix}offset_mlp.{i}"))
+        sd.update(_siren_net(p["siren"], f"{prefix}siren"))
+        sd.update(_mapping(p["mapping"], f"{prefix}mapping"))
+    return sd
+
+
+def anigan_generator_state_dict(variables: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax ANIGAN Generator variables → models.anigan.Generator
+    state_dict: the single-shape field and the deformer's parameters."""
+    params = variables["params"]
+    p = params["nerf_renderer"]["rad_field"]
+    pre = "nerf_renderer.rad_field"
+    sd = _mapping(p["MappingNetwork_0"], f"{pre}.mapping")
+    sd.update(_mapping(p["rgb_mapping"], f"{pre}.rgb_mapping"))
+    sd.update(_siren_net(p["SirenNet_0"], f"{pre}.siren"))
+    sd.update(_siren_net(p["alpha_siren"], f"{pre}.alpha_siren"))
+    sd.update(_dense(p["to_alpha"], f"{pre}.to_alpha"))
+    sd.update(_siren(p["to_rgb_siren"]["Dense_0"], f"{pre}.to_rgb_siren"))
+    sd.update(_dense(p["to_rgb"], f"{pre}.to_rgb"))
+    sd.update(deformer_state_dict(params.get("deformer", {}),
+                                  f"{pre}.deformer."))
     return sd
 
 

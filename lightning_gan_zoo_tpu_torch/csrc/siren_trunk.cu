@@ -56,9 +56,9 @@
 //      pre-activation a_i and input h_i (both exactly bf16 for layers ≥ 1)
 //      are spilled to device scratch the wrapper allocates, and a_0 (f32) is
 //      recomputed from x. The slot of a_i is overwritten with the bf16 da_i
-//      once the walk has read it. Column sums (db, dγ, dβ, and dW0 = xᵀ·da_0
-//      with Cin ≤ 4 rows) accumulate in one partial per block; dx is
-//      finished in the block.
+//      once the walk has read it. Column sums (db, dγ, dβ) and dW0 = xᵀ·da_0
+//      (Cin ≤ 64 rows, read from the tile's f32 da_0 after the walk)
+//      accumulate in one partial per block; dx is finished in the block.
 //   2. `trunk_bwd_dw_kernel`: dWmid_i = h_iᵀ·da_i, a sum over all rows, as a
 //      split-K `wgmma` GEMM over the two stashes: each block takes a range
 //      of 64-row k-steps for 128 rows of dW (two warpgroups, m64nHk16), fed
@@ -84,7 +84,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kKC = 64;        // weight rows (columns, in the backward) per chunk
 constexpr int kMaxL = 16;
-constexpr int kMaxCin = 4;
+constexpr int kMaxCin = 64;
 
 // fast_sin (lightning_gan_zoo_tpu/ops/fast_math.py), constants as f32
 constexpr float kInvTwoPi = 0.15915494309189535f;
@@ -421,8 +421,8 @@ constexpr int kCWarpgroups = kCThreads / 128;
 // groups of 128 bytes, plus 16, so the 4 column groups a warp writes in the
 // elementwise map fall on distinct banks.
 constexpr int kActLbo = 8 * 128 + 16;
-// Per-layer column sums a thread hands over: db, dγ, dβ and dW0's Cin rows.
-constexpr int kRedSums = 3 + kMaxCin;
+// Per-layer column sums a thread hands over: db, dγ, dβ.
+constexpr int kRedSums = 3;
 // Weight chunks in flight: 3 of a product's 4 at H = 256 land while the
 // elementwise steps before it run.
 constexpr int kRingStages = 3;
@@ -713,7 +713,6 @@ trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0k,
 // Column sums of one layer of the walk back.
 struct Sums {
   float db = 0.0f, dg = 0.0f, dbt = 0.0f;
-  float dw0[kMaxCin] = {0.0f, 0.0f, 0.0f, 0.0f};
 };
 
 // Layer i ≥ 1 of the walk back, dh_i in st: da_i = w0·dsin(w0·f)·dh·γ, with
@@ -763,7 +762,7 @@ __device__ __forceinline__ void walk_layer(const Tile& t,
 }
 
 // Layer 0 of the walk back: a_0 recomputed in f32 from x; da_0 (f32) goes
-// to st for dx, and into dW0's sums.
+// to st, for dx and dW0.
 template <int H>
 __device__ __forceinline__ void walk_layer0(const Tile& t, float* st,
                                             const float* __restrict__ x,
@@ -788,9 +787,6 @@ __device__ __forceinline__ void walk_layer0(const Tile& t, float* st,
         sum.dbt += df;
         const float da = __fmul_rn(df, g);
         sum.db += da;
-#pragma unroll
-        for (int k = 0; k < kMaxCin; ++k)
-          if (k < Cin) sum.dw0[k] += xr[k] * da;
         st[r * Cl::SP + t.c] = da;
       }
     }
@@ -903,10 +899,6 @@ trunk_bwd_chain_kernel(const float* __restrict__ x,
       red[0 * kCThreads + tid] = sum.db;
       red[1 * kCThreads + tid] = sum.dg;
       red[2 * kCThreads + tid] = sum.dbt;
-#pragma unroll
-      for (int k = 0; k < kMaxCin; ++k) {
-        red[(3 + k) * kCThreads + tid] = sum.dw0[k];
-      }
       __syncthreads();
       if (tid < H) {
         auto fold = [&](int k) {
@@ -921,21 +913,30 @@ trunk_bwd_chain_kernel(const float* __restrict__ x,
           p[sl.dg(i) * H + c] += fold(1);
           p[sl.dbt(i) * H + c] += fold(2);
         }
-        if (i == 0) {
-          for (int k = 0; k < Cin; ++k) p[sl.dw0(k) * H + c] += fold(3 + k);
-        }
       }
       if (i > 0) {
         ring_product<H>(act, st, rg, wpack, q, total, L, per_tile, tid);
       }
     }
-    // dx = da_0 · W0ᵀ, f32
+    // From da_0 (f32, in st): dx = da_0 · W0ᵀ, and the tile's dW0 = xᵀ·da_0
+    // added to the block's partial. Each element is one thread's, summed
+    // over the tile's rows in order, so any Cin takes the same code and the
+    // result is the same every call.
     __syncthreads();
     for (int e = tid; e < t.nrows * Cin; e += kCThreads) {
       const int r = e / Cin, k = e % Cin;
       float s = 0.0f;
       for (int j = 0; j < H; ++j) s += st[r * SP + j] * w0k[k * H + j];
       dx[(t.xrow0 + r) * Cin + k] = s;
+    }
+    for (int e = tid; e < Cin * H; e += kCThreads) {
+      const int k = e / H, col = e % H;
+      const float* xk = x + t.xrow0 * Cin + k;
+      float s = 0.0f;
+      for (int r = 0; r < t.nrows; ++r) {
+        s = __fmaf_rn(xk[(size_t)r * Cin], st[r * SP + col], s);
+      }
+      p[sl.dw0(k) * H + col] += s;
     }
     __syncthreads();  // st and act are reused by the next tile
   }

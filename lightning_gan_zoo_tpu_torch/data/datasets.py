@@ -1,8 +1,9 @@
 """Dataset readers for the port (counterpart of
 lightning_gan_zoo_tpu/data/datasets.py): ``ImageFolder`` and ``MNIST``
 decode with numpy and PIL as the JAX package's PIL path does (its native
-fastimage decoder is not ported), and ``Synthetic`` makes each image from
-its index. ``load`` returns NHWC float32 numpy arrays normalised as
+fastimage decoder is not ported), ``Synthetic`` makes each image from
+its index, and ``AnimalAnalysisFolder`` adds ANIGAN's per-image shape
+analyses. ``load`` returns NHWC float32 numpy arrays normalised as
 (x/255 − mean)/std, exactly as the JAX package's readers do; the Trainer
 moves them to the device in NCHW."""
 from __future__ import annotations
@@ -99,6 +100,33 @@ class ImageFolder:
                             np.int32)
         return {"image": _normalise(imgs, self.mean, self.std),
                 "label": labels}
+
+
+class AnimalAnalysisFolder(ImageFolder):
+    """ImageFolder plus a per-image npz shape analysis (ANIGAN): ``load``
+    adds ``shape_analysis``, a dict of float32 arrays stacked over the
+    batch, with the keys cam_pred, mean_shape, verts, kp_verts, mask_pred
+    and faces that the npz of ``<analysis_root>/<image stem>.npz`` holds."""
+
+    _ANALYSIS_KEYS = ("cam_pred", "mean_shape", "verts", "kp_verts",
+                      "mask_pred", "faces")
+
+    def __init__(self, root: str, analysis_root: str, **kwargs):
+        super().__init__(root, **kwargs)
+        self.analysis_root = Path(analysis_root)
+
+    def load(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        out = super().load(indices)
+        per_key: Dict[str, list] = {k: [] for k in self._ANALYSIS_KEYS}
+        for i in indices:
+            path, _ = self.samples[int(i)]
+            with np.load(self.analysis_root / (path.stem + ".npz")) as npz:
+                for k in self._ANALYSIS_KEYS:
+                    if k in npz:
+                        per_key[k].append(np.asarray(npz[k], np.float32))
+        out["shape_analysis"] = {k: np.stack(v) for k, v in per_key.items()
+                                 if v}
+        return out
 
 
 class MNIST:

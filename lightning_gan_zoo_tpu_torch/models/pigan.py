@@ -3,7 +3,9 @@
 
 The generator samples azimuth-only orthographic cameras from an explicit
 ``torch.Generator`` and renders every ray (nerf/renderer.py). It returns
-NHWC RGBA, as the JAX generator does; the discriminator takes NCHW. Every
+NHWC RGBA, as the JAX generator does; the discriminator takes NCHW. It also
+takes explicit cameras, a per-sample ray scale and ANIGAN's deformation
+inputs (models/anigan.py builds it with a deformer). Every
 parameter of the progressive discriminator (all from_rgb entries and all
 blocks) exists from construction, as the JAX init creates them: growing
 adds no parameter. ``current_res`` is a Python int and the fade-in ``alpha``
@@ -48,7 +50,8 @@ class Generator(nn.Module):
 
     def __init__(self, nerf_cfg, view_args, img_size: int = 64,
                  precision: int = 32,
-                 init_generator: Optional[torch.Generator] = None):
+                 init_generator: Optional[torch.Generator] = None,
+                 deformer: Optional[nn.Module] = None):
         super().__init__()
         nc = nerf_cfg
         self.view_args = view_args
@@ -67,7 +70,15 @@ class Generator(nn.Module):
             white_bg=bool(nc["white_bg"]),
             single_shape=bool(nc["single_shape"]),
             bf16=int(precision) == 16,
+            deformer=deformer,
+            siren_input_channels=(3 if deformer is None
+                                  else int(deformer.siren_input_channels)),
             generator=init_generator)
+
+    @property
+    def deformer(self) -> Optional[nn.Module]:
+        """The field's deformer (ANIGAN), else None."""
+        return getattr(self.nerf_renderer.rad_field, "deformer", None)
 
     def pose_to_cameras(self, view_in: torch.Tensor) -> OrthographicCameras:
         """6-dof view rows → azimuth-only orbit cameras at camera_dist."""
@@ -80,24 +91,37 @@ class Generator(nn.Module):
                 view_in: Optional[torch.Tensor] = None, train: bool = True,
                 view_generator: Optional[torch.Generator] = None,
                 depth_generator: Optional[torch.Generator] = None,
-                fine_generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                fine_generator: Optional[torch.Generator] = None,
+                cameras: Optional[OrthographicCameras] = None,
+                ray_scale: Optional[torch.Tensor] = None,
+                deform_generator: Optional[torch.Generator] = None,
+                **deformation) -> torch.Tensor:
         """z (B, noise) → (B, S, S, 4) RGBA at ``sample_res`` (default
-        img_size). Without ``view_in`` a view is drawn from
-        ``view_generator``."""
+        img_size). The cameras are ``cameras``, else those of ``view_in``,
+        else a view drawn from ``view_generator``. ``ray_scale`` (B,)
+        divides each sample's NDC ray grid. ``deformation`` (ANIGAN:
+        deformation_parameters, deformed_verts, mean_shape_verts,
+        kp_verts) and ``deform_generator`` go to the field."""
         res = int(sample_res or self.img_size)
         b = z.shape[0]
-        if view_in is None:
-            if view_generator is None:
-                raise ValueError("Generator needs view_in or a generator to "
-                                 "sample views from")
-            view_in = sample_pigan_view(view_generator, b,
-                                        self.view_args["azimuth_low"],
-                                        self.view_args["azimuth_high"])
         rays_xy = sample_full_xys(b, res, device=z.device)
-        return self.nerf_renderer(z, self.pose_to_cameras(view_in), rays_xy,
-                                  train=train, depth_generator=depth_generator,
-                                  fine_generator=fine_generator)
+        if ray_scale is not None:
+            rays_xy = rays_xy / ray_scale[:, None, None, None]
+        if cameras is None:
+            if view_in is None:
+                if view_generator is None:
+                    raise ValueError("Generator needs cameras, view_in or a "
+                                     "generator to sample views from")
+                view_in = sample_pigan_view(view_generator, b,
+                                            self.view_args["azimuth_low"],
+                                            self.view_args["azimuth_high"])
+            cameras = self.pose_to_cameras(view_in)
+        field_kw = {k: v for k, v in deformation.items() if v is not None}
+        if self.deformer is not None:
+            field_kw["deform_generator"] = deform_generator
+        return self.nerf_renderer(z, cameras, rays_xy, train=train,
+                                  depth_generator=depth_generator,
+                                  fine_generator=fine_generator, **field_kw)
 
 
 class DiscriminatorBlock(nn.Module):

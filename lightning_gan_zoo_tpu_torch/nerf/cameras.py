@@ -105,8 +105,11 @@ def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
 def convert_cam_pred(cam_pred: torch.Tensor):
     """(scale, tx, ty, quat[4]) camera → orthographic cameras and scale:
     R = quat_matrixᵀ @ diag(−1, −1, 1), T = (−tx, −ty, 1)."""
-    scale, tx, ty = cam_pred[:, 0], cam_pred[:, 1], cam_pred[:, 2]
-    flip = torch.diag(torch.tensor([-1.0, -1.0, 1.0], device=cam_pred.device))
-    R = quaternion_to_matrix(cam_pred[:, 3:7]).transpose(1, 2) @ flip
-    T = torch.stack([-tx, -ty, torch.ones_like(tx)], dim=1)
+    with torch.autocast(cam_pred.device.type, enabled=False):
+        cam_pred = cam_pred.float()
+        scale, tx, ty = cam_pred[:, 0], cam_pred[:, 1], cam_pred[:, 2]
+        flip = torch.diag(torch.tensor([-1.0, -1.0, 1.0],
+                                       device=cam_pred.device))
+        R = quaternion_to_matrix(cam_pred[:, 3:7]).transpose(1, 2) @ flip
+        T = torch.stack([-tx, -ty, torch.ones_like(tx)], dim=1)
     return OrthographicCameras(R=R, T=T), scale

@@ -1,12 +1,13 @@
 """Volumetric renderer: coarse + fine FiLM-SIREN NeRF (counterpart of
-lightning_gan_zoo_tpu/nerf/renderer.py), for π-GAN.
+lightning_gan_zoo_tpu/nerf/renderer.py), for π-GAN and ANIGAN.
 
 One radiance field serves both passes. The coarse pass only decides where
 the fine samples go (the JAX renderer stops its gradient), so it runs under
 ``torch.no_grad()``: the same math, no coarse backward and no coarse graph
 kept. When the ray count exceeds ``chunk_size`` the rays are rendered in
 chunks by a plain loop. Stratified depth jitter and fine-pass sampling draw
-from explicit ``torch.Generator``s. ``torch.sort`` orders the fine depths
+from explicit ``torch.Generator``s. ANIGAN's field (``single_shape``) takes
+a deformer, and the deformation inputs pass through both passes to it. ``torch.sort`` orders the fine depths
 (the JAX package's gather-gradient sort was a TPU workaround; the depths
 carry no gradient). Ray sharding over devices (``num_sp``) is not ported.
 """
@@ -19,7 +20,7 @@ from torch import nn
 
 from .cameras import OrthographicCameras, world_rays_from_ndc
 from .sampling import sample_pdf, stratify_depths
-from .siren import SirenRadianceField
+from .siren import SirenRadianceField, SirenSingleShape
 
 
 def shifted_cumprod(x: torch.Tensor) -> torch.Tensor:
@@ -96,28 +97,31 @@ class RadianceFieldRenderer(nn.Module):
                  stratified_test: bool, chunk_size: int, latent_z_dim: int,
                  siren_dim_hidden: int, siren_num_layers: int,
                  white_bg: bool, single_shape: bool = False,
-                 bf16: bool = False,
+                 bf16: bool = False, deformer: Optional[nn.Module] = None,
+                 siren_input_channels: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if single_shape:
-            raise NotImplementedError(
-                "nerf.single_shape (ANIGAN's radiance field) is not yet "
-                "ported to lightning_gan_zoo_tpu_torch")
         self.n_pts, self.n_fine = int(n_pts_per_ray), int(n_pts_per_ray_fine)
         self.min_depth, self.max_depth = float(min_depth), float(max_depth)
         self.stratified, self.stratified_test = stratified, stratified_test
         self.chunk_size = int(chunk_size or 0)
         self.white_bg = white_bg
-        self.rad_field = SirenRadianceField(latent_z_dim, siren_num_layers,
-                                            siren_dim_hidden, bf16=bf16,
-                                            generator=generator)
+        if single_shape:
+            self.rad_field = SirenSingleShape(
+                latent_z_dim, siren_num_layers, siren_dim_hidden,
+                deformer=deformer, input_channels=siren_input_channels,
+                bf16=bf16, generator=generator)
+        else:
+            self.rad_field = SirenRadianceField(
+                latent_z_dim, siren_num_layers, siren_dim_hidden, bf16=bf16,
+                generator=generator)
 
     def _render_core(self, origins, dirs_n, depths, z, stratify: bool,
-                     fine_generator):
+                     fine_generator, field_kw):
         """Coarse + fine render of one set of rays → (B, N, 4) fine RGBA."""
         with torch.no_grad():
             pts = origins[:, :, None] + depths[..., None] * dirs_n[:, :, None]
-            dens_c, cols_c = self.rad_field(pts, dirs_n, z)
+            dens_c, cols_c = self.rad_field(pts, dirs_n, z, **field_kw)
             _, weights_c = ea_raymarch(dens_c.float(), cols_c.float(),
                                        self.white_bg)
             mids = 0.5 * (depths[..., 1:] + depths[..., :-1])
@@ -127,18 +131,19 @@ class RadianceFieldRenderer(nn.Module):
             depths_f = torch.sort(torch.cat([depths, z_samples], -1),
                                   dim=-1).values
         pts_f = origins[:, :, None] + depths_f[..., None] * dirs_n[:, :, None]
-        dens_f, cols_f = self.rad_field(pts_f, dirs_n, z)
+        dens_f, cols_f = self.rad_field(pts_f, dirs_n, z, **field_kw)
         rgba, _ = ea_raymarch(dens_f.float(), cols_f.float(), self.white_bg)
         return rgba
 
     def forward(self, z: torch.Tensor, cameras: OrthographicCameras,
                 rays_xy: torch.Tensor, train: bool = True,
                 depth_generator: Optional[torch.Generator] = None,
-                fine_generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                fine_generator: Optional[torch.Generator] = None,
+                **field_kw) -> torch.Tensor:
         """rays_xy (B, H, W, 2) or (B, N, 2) NDC → (B, H, W, 4) or (B, N, 4)
         fine RGBA. Stratified sampling (training, or ``stratified_test``)
-        draws from the two generators."""
+        draws from the two generators; ``field_kw`` (the deformation inputs)
+        go to the field in both passes."""
         b = z.shape[0]
         spatial = rays_xy.shape[1:-1]
         xy = rays_xy.reshape(b, -1, 2).float()
@@ -159,6 +164,6 @@ class RadianceFieldRenderer(nn.Module):
             self._render_core(origins[:, lo:lo + chunk],
                               dirs_n[:, lo:lo + chunk],
                               depths[:, lo:lo + chunk], z, stratify,
-                              fine_generator)
+                              fine_generator, field_kw)
             for lo in range(0, n_rays, chunk)], dim=1)
         return rgba.reshape((b,) + spatial + (4,))

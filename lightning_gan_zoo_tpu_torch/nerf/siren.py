@@ -1,4 +1,4 @@
-"""FiLM-SIREN radiance fields for π-GAN (counterpart of
+"""FiLM-SIREN radiance fields for π-GAN and ANIGAN (counterpart of
 lightning_gan_zoo_tpu/nerf/siren.py).
 
 The SIREN parameters keep flax's layout, a ``kernel`` of shape (in, out) and
@@ -178,9 +178,10 @@ class SirenRadianceField(nn.Module):
         self.to_rgb = dense(dim_hidden, 3, g)
 
     def forward(self, points: torch.Tensor, directions: torch.Tensor,
-                z: torch.Tensor):
+                z: torch.Tensor, **_deformation):
         """points (B, N, P, 3) world ray points, directions (B, N, 3) →
-        (densities (B, N, P, 1), colours (B, N, P, 3))."""
+        (densities (B, N, P, 1), colours (B, N, P, 3)). Deformation inputs
+        (ANIGAN's) are not used."""
         gammas, betas = self.mapping(z)
         rgb_g, rgb_b = self.rgb_mapping(z)
         dirs = directions / torch.clamp(
@@ -194,5 +195,70 @@ class SirenRadianceField(nn.Module):
         x = torch.cat([x, dirs.to(x.dtype)], dim=-1)
         x = self.to_rgb_siren(x, rgb_g[:, 0], rgb_b[:, 0])
         rgb = self.to_rgb(x)
+        return (torch.sigmoid(alpha).reshape(b, n, p, 1),
+                torch.sigmoid(rgb).reshape(b, n, p, 3))
+
+
+class SirenSingleShape(nn.Module):
+    """ANIGAN's radiance field: the ray points are first mapped into the
+    template's space by the deformer, then two SIREN trunks read them: a
+    FiLM'd one whose features, with the view direction, go through the FiLM
+    sine layer ``to_rgb_siren`` and the rgb head, and an unfilmed one
+    (``alpha_siren``) before the α head. Under the bf16 policy on a card
+    each trunk runs the fused kernels, the unfilmed one with γ = 1, β = 0.
+
+    Without deformation inputs the field reads uniform noise in place of the
+    deformed points, drawn from ``deform_generator`` (the reference draws
+    ``torch.rand``)."""
+
+    def __init__(self, latent_z_dim: int, num_layers: int, dim_hidden: int,
+                 deformer: Optional[nn.Module] = None, input_channels: int = 3,
+                 bf16: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator or torch.Generator().manual_seed(0)
+        self.input_channels = int(input_channels)
+        self.mapping = MappingNetwork(latent_z_dim, dim_hidden,
+                                      n_heads=num_layers, generator=g)
+        self.rgb_mapping = MappingNetwork(latent_z_dim, dim_hidden,
+                                          n_heads=1, generator=g)
+        self.siren = SirenNet(self.input_channels, dim_hidden, dim_hidden,
+                              num_layers, bf16=bf16, generator=g)
+        self.to_rgb_siren = Siren(dim_hidden + 3, dim_hidden, bf16=bf16,
+                                  generator=g)
+        self.to_rgb = dense(dim_hidden, 3, g)
+        self.alpha_siren = SirenNet(self.input_channels, dim_hidden,
+                                    dim_hidden, num_layers, bf16=bf16,
+                                    generator=g)
+        self.to_alpha = dense(dim_hidden, 1, g)
+        self.deformer = deformer
+
+    def forward(self, points: torch.Tensor, directions: torch.Tensor,
+                z: torch.Tensor, deformation_parameters=None,
+                deformed_verts=None, mean_shape_verts=None, kp_verts=None,
+                deform_generator: Optional[torch.Generator] = None):
+        """points (B, N, P, 3), directions (B, N, 3) → (densities
+        (B, N, P, 1), colours (B, N, P, 3))."""
+        b, n, p, _ = points.shape
+        gammas, betas = self.mapping(z)
+        rgb_g, rgb_b = self.rgb_mapping(z)
+        dirs = directions / torch.clamp(
+            torch.linalg.vector_norm(directions, dim=-1, keepdim=True),
+            min=1e-12)
+        if deformation_parameters is not None or deformed_verts is not None:
+            deformed = self.deformer.transform(
+                points.reshape(b, -1, 3), deformed_verts, mean_shape_verts,
+                kp_verts, deformation_parameters)
+            deformed = deformed.reshape(b, n * p, self.input_channels)
+        else:
+            deformed = torch.rand((b, n * p, self.input_channels),
+                                  generator=deform_generator,
+                                  device=points.device)
+        dirs = dirs[:, :, None, :].expand(b, n, p, 3).reshape(b, n * p, 3)
+        x = self.siren(deformed, gammas, betas)
+        x = torch.cat([x, dirs.to(x.dtype)], dim=-1)
+        x = self.to_rgb_siren(x, rgb_g[:, 0], rgb_b[:, 0])
+        rgb = self.to_rgb(x)
+        alpha = self.to_alpha(self.alpha_siren(deformed))
         return (torch.sigmoid(alpha).reshape(b, n, p, 1),
                 torch.sigmoid(rgb).reshape(b, n, p, 3))

@@ -42,7 +42,9 @@ BWD_LAUNCHES = 0
 #: column)
 SUPPORTED_H = (64, 128, 256)
 MAX_LAYERS = 16
-MAX_CIN = 4
+#: input channels: layer 0 loops over them, and the backward sums dW0's
+#: rows from the tile's f32 da_0, one thread per element
+MAX_CIN = 64
 #: rows of one sample that one forward or backward block walks (a multiple
 #: of 64)
 ROWS_PER_BLOCK = 256
@@ -260,7 +262,7 @@ def siren_trunk(x: torch.Tensor, w0k: torch.Tensor, wmid: torch.Tensor,
     x (B, M, Cin), w0k (Cin, H), wmid (L−1, H, H), bs (L, H), gammas and
     betas (B, n_film, H), all float32; FiLM applies to the first n_film
     layers. w0s: the L sine frequencies. Returns (B, M, H) bf16. On a card
-    the kernels take H in SUPPORTED_H, 2..16 layers and 1..4 input channels;
+    the kernels take H in SUPPORTED_H, 2..16 layers and 1..64 input channels;
     any other shape raises."""
     check_shapes(x, w0k, wmid, bs, gammas, betas, w0s)
     return _SirenTrunk.apply(x, w0k, wmid, bs, gammas, betas, tuple(w0s))

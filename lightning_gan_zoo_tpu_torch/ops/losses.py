@@ -79,3 +79,20 @@ def gradient_penalty(d_fn: Callable[[torch.Tensor], torch.Tensor],
                                   create_graph=True)
     norms = torch.sqrt(grad.square().reshape(x.shape[0], -1).sum(1) + 1e-12)
     return torch.mean(torch.square(norms - 1.0))
+
+
+def interpolate_sphere(z1: torch.Tensor, z2: torch.Tensor, t: float
+                       ) -> torch.Tensor:
+    """Spherical interpolation between two latent batches (B, D), float32:
+    the angle ω between each pair of rows, then
+    sin((1−t)ω)/sin ω · z1 + sin(tω)/sin ω · z2, with sin ω held off 0."""
+    z1, z2 = z1.float(), z2.float()
+    p = (z1 * z2).sum(1, keepdim=True)
+    p = p / torch.sqrt(z1.square().sum(1, keepdim=True))
+    p = p / torch.sqrt(z2.square().sum(1, keepdim=True))
+    omega = torch.arccos(torch.clamp(p, -1.0, 1.0))
+    sin_omega = torch.where(torch.sin(omega).abs() < 1e-7,
+                            torch.full_like(omega, 1e-7), torch.sin(omega))
+    s1 = torch.sin((1.0 - t) * omega) / sin_omega
+    s2 = torch.sin(t * omega) / sin_omega
+    return s1 * z1 + s2 * z2

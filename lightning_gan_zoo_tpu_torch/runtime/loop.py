@@ -31,9 +31,18 @@ the best so far; only a calibrated FID names it; its meta carries
 unless the calibration flipped. ``eval_only=true`` (``evaluate``) restores
 train.ckpt_dir and runs one validation without training or saving.
 
-Features of the JAX Trainer that are not ported yet (figures, asynchronous
-checkpoints, the preemption rescue, multi-device axes, profiling) raise
-NotImplementedError when switched on; none is skipped quietly.
+The config's figures (figures/types.py, figures/anigan_figures.py) are built
+with the Trainer, as the JAX Trainer builds them: only a missing dataset
+(FileNotFoundError) skips one, any other error fails the run. Each
+validation hands them the eval parameters and the metrics, with the
+uncalibrated FID standing in for ``fid`` in their gating; a figure that
+raises NotImplementedError is reported and skipped, and what a figure drew
+is also logged as an image (a GIF's middle frame).
+
+Features of the JAX Trainer that are not ported yet (asynchronous
+checkpoints, the preemption rescue, multi-device axes, profiling, the debug
+switches, nerf.remat) raise NotImplementedError when switched on; none is
+skipped quietly.
 """
 from __future__ import annotations
 
@@ -49,10 +58,11 @@ from ..config.node import Config
 from ..config.registry import instantiate
 from ..data.pipeline import EpochLoader
 from ..figures.image_io import make_grid, unnormalise
+from ..figures.types import FigureContext
 from ..utils.logging import ExperimentLogger
 from .checkpoint import CheckpointManager
 from .state import create_train_state
-from .steps import microbatch_count, superstep
+from .steps import map_batch, microbatch_count, superstep
 
 
 def unported_features(cfg: Config) -> List[str]:
@@ -60,8 +70,6 @@ def unported_features(cfg: Config) -> List[str]:
     found = []
     if cfg.get("save_ckpts_async", False):
         found.append("save_ckpts_async=true (asynchronous checkpoints)")
-    if cfg.get("figures"):
-        found.append("figure callbacks (pass '~figures')")
     if (cfg.get("nerf") or {}).get("remat", False):
         found.append("nerf.remat=true")
     for key in ("num_gpus", "num_sp", "num_tp"):
@@ -128,6 +136,7 @@ class Trainer:
         self.ema_decay = float(cfg.train.get("ema_decay") or 0.0)
         self.task = instantiate(cfg.model.lm, cfg, str(self.logging_dir),
                                 device=self.device)
+        self.figures = self._build_figures()
         self.metrics_eval = None
         if bool(cfg.get("calc_fid", False)) and bool(cfg.val.get("use_fid",
                                                                  True)):
@@ -146,6 +155,21 @@ class Trainer:
 
     def _generator(self, offset: int) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(self.seed + offset)
+
+    def _build_figures(self) -> list:
+        """The config's figures; one whose dataset is missing is skipped
+        with a message, any other error fails the run."""
+        figs = []
+        monitor = ("fid" if self.cfg.figure_details.get("fid_callback", False)
+                   else None)
+        for name, node in (self.cfg.get("figures") or {}).items():
+            try:
+                figs.append(instantiate(node, self.cfg.figure_details,
+                                        str(self.logging_dir),
+                                        monitor=monitor))
+            except FileNotFoundError as e:
+                print(f"[figures] skipping {name} (missing data): {e}")
+        return figs
 
     # -------------------------------------------------- epoch schedules
     def _initial_batch_size(self) -> int:
@@ -228,10 +252,14 @@ class Trainer:
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
         """[n_micro, B, H, W, C] numpy images → [n_micro, B, C, H, W] on the
-        device."""
-        img = torch.from_numpy(batch["image"]).to(self.device,
-                                                  non_blocking=True)
-        return {"image": img.permute(0, 1, 4, 2, 3).contiguous()}
+        device, and the shape analyses (ANIGAN) as they are."""
+        def move(a):
+            return torch.from_numpy(a).to(self.device, non_blocking=True)
+        out = {"image": move(batch["image"]).permute(0, 1, 4, 2, 3)
+               .contiguous()}
+        if "shape_analysis" in batch:
+            out["shape_analysis"] = map_batch(move, batch["shape_analysis"])
+        return out
 
     # ------------------------------------------------------ checkpoints
     def checkpoint_payload(self) -> dict:
@@ -340,8 +368,8 @@ class Trainer:
                 for f in range(fold):
                     metrics = superstep(
                         self.task, self.state,
-                        {k: v[f * n_micro:(f + 1) * n_micro]
-                         for k, v in stack.items()},
+                        map_batch(lambda v: v[f * n_micro:(f + 1) * n_micro],
+                                  stack),
                         self.disc_freq, self.gen_freq, accum, self.ema_decay)
                     for k, v in metrics.items():
                         epoch_metrics.setdefault(f"train/{k}", []).append(v)
@@ -373,10 +401,32 @@ class Trainer:
                   "empty): evaluating the random initialisation")
         return self.validate(self.state.step)
 
+    def _draw_figures(self, params, metrics: Dict[str, float],
+                      global_step: int):
+        """Every figure's validation end. Their gating may use the
+        uncalibrated FID (self-consistent within a run), so it stands in
+        for ``fid``."""
+        fig_metrics = dict(metrics)
+        if "fid" not in fig_metrics and "fid_uncalibrated" in fig_metrics:
+            fig_metrics["fid"] = fig_metrics["fid_uncalibrated"]
+        ctx = FigureContext(task=self.task, g_params=params, cfg=self.cfg,
+                            epoch=self.epoch, seed=self.seed)
+        for fig in self.figures:
+            try:
+                fig.on_validation_end(ctx, fig_metrics)
+            except NotImplementedError as e:
+                print(f"[figures] {type(fig).__name__}: {e}")
+            art = fig.last_artefact
+            if art is not None and fig.last_drawn_epoch == self.epoch:
+                frame = art[len(art) // 2] if isinstance(art, list) else art
+                self.logger.log_image(f"figures/{type(fig).__name__}",
+                                      np.asarray(frame), global_step)
+
     def validate(self, global_step: int) -> Dict[str, float]:
         """Real grid from the val set (skipped, as in the JAX Trainer, when
         the split is missing); Fake grid from the fixed noise; with an FID
-        evaluator, FID and KID; with save_ckpts, the best-FID checkpoint.
+        evaluator, FID and KID; the figures; with save_ckpts, the best-FID
+        checkpoint.
         Without FID every validation counts as an improvement, so the
         latest epoch's checkpoint is the one kept. Returns the FID/KID
         metrics (empty without an evaluator)."""
@@ -405,6 +455,7 @@ class Trainer:
             self.logger.log_scalars(metrics, global_step)
             print("  " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()),
                   flush=True)
+        self._draw_figures(params, metrics, global_step)
         # the best-FID policy: selection on the uncalibrated FID where there
         # are no weights (self-consistent within a run), but only a
         # calibrated FID names a checkpoint

@@ -13,7 +13,7 @@ G's parameters follows every G update.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -23,6 +23,13 @@ from .state import TrainState, update_ema
 
 def microbatch_count(disc_freq: int, gen_freq: int, accum: int = 1) -> int:
     return (disc_freq + gen_freq) * accum
+
+
+def map_batch(fn: Callable, batch: dict) -> dict:
+    """``fn`` on every tensor of a batch, nested dicts (ANIGAN's
+    shape_analysis) included."""
+    return {k: map_batch(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in batch.items()}
 
 
 def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
@@ -48,7 +55,7 @@ def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
         for _ in range(freq):
             opt.zero_grad(set_to_none=True)
             for _a in range(accum):
-                micro = {k: v[i] for k, v in batches.items()}
+                micro = map_batch(lambda v: v[i], batches)
                 if task.clips_disc:
                     task.clip_disc()
                 z = task.sample_z(micro["image"].shape[0])

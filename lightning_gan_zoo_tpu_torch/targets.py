@@ -74,7 +74,7 @@ def _task(name):
 
 
 for _name in ("DCGAN", "GANStabilityR1", "WGAN", "WGANGP", "HOLOGAN",
-              "PIGAN"):
+              "PIGAN", "ANIGAN"):
     register(f"lightning_gan_zoo_tpu.tasks.{_name}",
              f"core.lightning_module.{_name}")(_task(_name))
 
@@ -93,6 +93,13 @@ def _pigan_d(**kw):
     return _model_factory(pigan.Discriminator)(**kw)
 
 
+@register("lightning_gan_zoo_tpu.models.anigan.Generator",
+          "core.models.anigan.Generator")
+def _anigan_g(**kw):
+    from .models import anigan
+    return _model_factory(anigan.Generator)(**kw)
+
+
 @register("lightning_gan_zoo_tpu.data.datasets.ImageFolder",
           "torchvision.datasets.ImageFolder")
 def _image_folder(**kw):
@@ -105,6 +112,13 @@ def _image_folder(**kw):
 def _mnist(**kw):
     from .data.datasets import MNIST
     return MNIST(**kw)
+
+
+@register("lightning_gan_zoo_tpu.data.datasets.AnimalAnalysisFolder",
+          "core.anigan.dataset.AnimalAnalysisFolder")
+def _animal_folder(**kw):
+    from .data.datasets import AnimalAnalysisFolder
+    return AnimalAnalysisFolder(**kw)
 
 
 @register("lightning_gan_zoo_tpu.data.datasets.Synthetic")
@@ -147,3 +161,32 @@ def _step_lr(**kw):
 def _hologan_lr(total_epochs, **kw):
     from .runtime.optim import hologan_schedule
     return hologan_schedule(int(total_epochs), **kw)
+
+
+def _figure(name):
+    def factory(*args, **kw):
+        from . import figures
+        return getattr(figures, name)(*args, **kw)
+    factory.__name__ = f"make_{name}"
+    return factory
+
+
+for _name in ("SampleGrid", "Interpolation", "Interpolation3d", "AzimuthStep",
+              "ElevationStep", "AzimuthGif", "ElevationGif",
+              "FullShapeAnalysis", "AniganTurntable"):
+    register(f"lightning_gan_zoo_tpu.figures.{_name}",
+             f"core.figures.types.{_name}")(_figure(_name))
+
+
+def _deformer(name):
+    def factory(**kw):
+        from .anigan import deformer
+        return getattr(deformer, name)(**kw)
+    factory.__name__ = f"make_{name}"
+    return factory
+
+
+for _name in ("TPSDeformer", "KernelDeformer", "RBFDeformer", "LSTMDeformer",
+              "SirenDeformer", "DisplacementDeformer"):
+    register(f"lightning_gan_zoo_tpu.anigan.deformer.{_name}",
+             f"core.anigan.deformer.{_name}")(_deformer(_name))

@@ -135,11 +135,13 @@ class GANTask:
             self.generator.train(was_training)
 
     def generate(self, z: torch.Tensor, generator: torch.Generator | None
-                 = None, params: Optional[Dict[str, torch.Tensor]] = None
-                 ) -> torch.Tensor:
-        """Eval-mode image generation (validation grids), NCHW float32."""
+                 = None, params: Optional[Dict[str, torch.Tensor]] = None,
+                 **kwargs) -> torch.Tensor:
+        """Eval-mode image generation (validation grids, FID, figures),
+        NCHW float32. ``kwargs`` go to the generator (a view-conditioned
+        family's ``view_in``)."""
         with self.eval_generator():
-            return self.run_generator(params, z).float()
+            return self.run_generator(params, z, **kwargs).float()
 
     def disc_loss(self, batch: Dict[str, torch.Tensor], z: torch.Tensor,
                   extra: Dict[str, Any]

@@ -130,11 +130,18 @@ class HOLOGAN(GANTask):
     def generators(self):
         return {**super().generators(), "view": self.view_generator}
 
-    def generate(self, z, generator=None, params=None):
+    def sample_view(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """n 6-dof poses from the config's view ranges (the figures')."""
+        from ..models.hologan import sample_view
+        return sample_view(generator, n, self.cfg.generator.view_args)
+
+    def generate(self, z, generator=None, params=None, view_in=None):
+        """Eval-mode images, NCHW; the views are ``view_in``, else drawn
+        from ``generator`` (default: the task's view stream)."""
         with self.eval_generator():
             return self.run_generator(
-                params, z, generator=generator or self.view_generator
-            ).float()
+                params, z, view_in=view_in,
+                generator=generator or self.view_generator).float()
 
     def disc_loss(self, batch, z, extra):
         real = batch["image"]

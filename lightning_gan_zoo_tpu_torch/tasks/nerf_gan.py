@@ -1,4 +1,5 @@
-"""π-GAN (counterpart of lightning_gan_zoo_tpu/tasks/nerf_gan.py::PIGAN).
+"""π-GAN and ANIGAN (counterpart of lightning_gan_zoo_tpu/tasks/
+nerf_gan.py).
 
   * The training resolution is a Python int that resolution annealing raises
     at epoch boundaries (``increase_resolution``); the progressive D's
@@ -10,8 +11,12 @@
     as the JAX package's discriminator twin does.
   * LR decay: linear over 10k updates to lr/4 (D) and lr/5 (G), a function
     of each optimizer's update count.
-  * The task owns explicit generators for the view, depth-jitter and fine
-    sampling streams.
+  * The task owns explicit generators for the view, depth-jitter, fine
+    sampling and deformation-noise streams.
+  * ANIGAN renders through the batch's shape analyses: the analysis camera
+    and scale, the deformer's parameters and the meshes go to the
+    generator, and G's loss adds the silhouette MSE of the rendered α
+    against the predicted mask, read at the ray grid.
 
 Images reach the task NCHW; the renderer and the real-image sampler work in
 NHWC, as the JAX package does, and the discriminator takes NCHW.
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..config.registry import instantiate
+from ..nerf.cameras import convert_cam_pred
 from ..nerf.sampling import sample_full_xys, sample_images_at_xys
 from ..ops import losses as L
 from ..runtime.optim import pigan_decay_schedule
@@ -37,13 +43,22 @@ class PIGAN(GANTask):
         self.add_layer_iters = int(cfg.discriminator.get("add_layer_iters",
                                                          10000))
         seed = int(cfg.get("seed", 42))
-        self.view_generator, self.depth_generator, self.fine_generator = (
+        (self.view_generator, self.depth_generator, self.fine_generator,
+         self.deform_generator) = (
             torch.Generator(self.device).manual_seed(seed + k)
-            for k in (2, 3, 4))
+            for k in (2, 3, 4, 5))
 
     def generators(self):
         return {**super().generators(), "view": self.view_generator,
-                "depth": self.depth_generator, "fine": self.fine_generator}
+                "depth": self.depth_generator, "fine": self.fine_generator,
+                "deform": self.deform_generator}
+
+    def sample_view(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """n azimuth-only poses from the config's range (the figures')."""
+        from ..models.pigan import sample_pigan_view
+        va = self.cfg.generator.view_args
+        return sample_pigan_view(generator, n, va.azimuth_low,
+                                 va.azimuth_high)
 
     # -- extra state ---------------------------------------------------------
     def initial_extra(self):
@@ -76,7 +91,7 @@ class PIGAN(GANTask):
                 g_opt, pigan_decay_schedule(g_lr, g_lr / 5))
 
     # -- losses ----------------------------------------------------------------
-    def render_fake(self, z: torch.Tensor) -> torch.Tensor:
+    def render_fake(self, z: torch.Tensor, batch=None) -> torch.Tensor:
         """(B, res, res, 4) RGBA at the training resolution, training-mode
         sampling."""
         return self.generator(z, sample_res=self.training_resolution,
@@ -98,7 +113,7 @@ class PIGAN(GANTask):
     def disc_loss(self, batch, z, extra):
         real = self.sample_real(batch["image"])
         with torch.no_grad():
-            fake = self.render_fake(z)[..., :3].permute(0, 3, 1, 2)
+            fake = self.render_fake(z, batch)[..., :3].permute(0, 3, 1, 2)
         divergence = L.hinge_d_loss(self._d(real, extra),
                                     self._d(fake, extra))
         with self.penalty_scope():
@@ -108,15 +123,70 @@ class PIGAN(GANTask):
         return loss, {"d_loss": loss.detach(), "r1": r1.detach()}
 
     def gen_loss(self, batch, z, extra):
-        fake = self.render_fake(z)[..., :3].permute(0, 3, 1, 2)
+        fake = self.render_fake(z, batch)[..., :3].permute(0, 3, 1, 2)
         loss = L.pigan_g_loss(self._d(fake, extra))
         return loss, {"g_loss": loss.detach()}
 
     # -- sampling ---------------------------------------------------------------
-    def generate(self, z, generator=None, params=None):
-        """Eval-mode RGBA at train.img_size (deterministic depths), NCHW."""
+    def generate(self, z, generator=None, params=None, sample_res=None,
+                 **kwargs):
+        """Eval-mode RGBA at ``sample_res`` (default train.img_size;
+        deterministic depths), NCHW. ``kwargs``: the generator's view_in,
+        cameras, ray_scale and deformation inputs. Views, and ANIGAN's
+        deformation noise, come from ``generator`` (default: the task's
+        streams)."""
         with self.eval_generator():
             out = self.run_generator(
-                params, z, sample_res=int(self.cfg.train.img_size),
-                train=False, view_generator=generator or self.view_generator)
+                params, z, sample_res=int(sample_res or self.cfg.train.img_size),
+                train=False, view_generator=generator or self.view_generator,
+                deform_generator=generator or self.deform_generator, **kwargs)
         return out.float().permute(0, 3, 1, 2)
+
+
+class ANIGAN(PIGAN):
+    """π-GAN rendered through mesh-guided deformation, with silhouette
+    supervision."""
+
+    _DEFORMER = "nerf_renderer.rad_field.deformer."
+
+    def deformation_parameters(self, params, shape_analysis):
+        """The deformer's parameters for a shape-analysis batch, computed
+        with ``params`` (e.g. the EMA twin; None: G's own)."""
+        deformer = self.generator.deformer
+        if params is None:
+            return deformer(shape_analysis)
+        own = {k[len(self._DEFORMER):]: v for k, v in params.items()
+               if k.startswith(self._DEFORMER)}
+        return torch.func.functional_call(deformer, own, (shape_analysis,))
+
+    def deformation_inputs(self, shape_analysis, params=None):
+        """The generator's keyword arguments for a shape-analysis batch:
+        the analysis cameras and scale, the deformer's parameters and the
+        meshes."""
+        cameras, scale = convert_cam_pred(shape_analysis["cam_pred"])
+        return dict(cameras=cameras, ray_scale=scale,
+                    deformation_parameters=self.deformation_parameters(
+                        params, shape_analysis),
+                    deformed_verts=shape_analysis["verts"],
+                    mean_shape_verts=shape_analysis["mean_shape"],
+                    kp_verts=shape_analysis["kp_verts"])
+
+    def render_fake(self, z: torch.Tensor, batch=None) -> torch.Tensor:
+        return self.generator(z, sample_res=self.training_resolution,
+                              depth_generator=self.depth_generator,
+                              fine_generator=self.fine_generator,
+                              **self.deformation_inputs(
+                                  batch["shape_analysis"]))
+
+    def gen_loss(self, batch, z, extra):
+        fake = self.render_fake(z, batch)
+        loss = L.pigan_g_loss(self._d(fake[..., :3].permute(0, 3, 1, 2),
+                                      extra))
+        rays = sample_full_xys(fake.shape[0], self.training_resolution,
+                               device=fake.device)
+        mask = batch["shape_analysis"]["mask_pred"][..., None].float()
+        sil = sample_images_at_xys(mask, rays)[..., 0]
+        sil_loss = torch.mean(torch.square(fake[..., 3].float() - sil))
+        loss = loss + float(self.cfg.loss_weight.silhouette) * sil_loss
+        return loss, {"g_loss": loss.detach(),
+                      "silhouette": sil_loss.detach()}

@@ -4,9 +4,10 @@ computes the same function, that call.
 
     python -m lightning_gan_zoo_tpu_torch.utils.kernel_bench
 
-Prints one JSON line per kernel and one each with the trilinear and the
-trunk backward's time split by the kernels they launch (``torch.profiler``),
-each with the card's name and power limit. ``chip_smoke.py`` takes its
+Prints one JSON line per kernel (the trunk at π-GAN's shape and again at
+ANIGAN's 45 input channels) and one each with the trilinear and the trunk
+backward's time split by the kernels they launch (``torch.profiler``), each
+with the card's name and power limit. ``chip_smoke.py`` takes its
 timings and bounds from here.
 
 The yardsticks are never called by the port: ``F.grid_sample`` (5-D,
@@ -38,6 +39,8 @@ HOLOGAN_VIEWS = dict(elevation_low=70, elevation_high=110, azimuth_low=220,
                      transY_high=0, transZ_low=0, transZ_high=0)
 #: π-GAN's trunk at 16 px and batch 128: the fine pass's 256 rays × 32 points
 TRUNK_SLICE = dict(b=128, m=8192, h=256, layers=7, n_film=6)
+#: the same rows with ANIGAN's displacement deformer: 45 input channels
+TRUNK_CIN45 = dict(TRUNK_SLICE, cin=45)
 #: the kernels the backwards launch, as the profiler names them
 TRUNK_BWD_KERNELS = ("trunk_bwd_chain", "trunk_bwd_dw", "trunk_bwd_sum_dw",
                      "trunk_bwd_sum_chunks", "trunk_bwd_sum_batch")
@@ -156,14 +159,15 @@ def trilinear_times(vox, coords, gen) -> Dict[str, float]:
     }
 
 
-def trunk_inputs(gen, b, m, h, layers, n_film, unfilmed=False):
-    """SIREN-init weights on the card, x ~ N(0, 0.25), γ ~ 1 + N(0, 0.01),
-    β ~ N(0, 0.01) (γ = 1, β = 0 when ``unfilmed``), a bf16 cotangent.
-    Returns ((x, w0k, wmid, bs, γ, β), dy, w0s)."""
+def trunk_inputs(gen, b, m, h, layers, n_film, unfilmed=False, cin=3):
+    """SIREN-init weights on the card (layer 0 U(±1/cin)), x ~ N(0, 0.25)
+    with ``cin`` channels, γ ~ 1 + N(0, 0.01), β ~ N(0, 0.01) (γ = 1, β = 0
+    when ``unfilmed``), a bf16 cotangent. Returns ((x, w0k, wmid, bs, γ, β),
+    dy, w0s)."""
     d = dict(device="cuda")
     bound_ = (6 / h) ** 0.5
-    x = torch.randn(b, m, 3, generator=gen, **d) * 0.5
-    w0k = (torch.rand(3, h, generator=gen, **d) * 2 - 1) / 3
+    x = torch.randn(b, m, cin, generator=gen, **d) * 0.5
+    w0k = (torch.rand(cin, h, generator=gen, **d) * 2 - 1) / cin
     wmid = (torch.rand(layers - 1, h, h, generator=gen, **d) * 2 - 1) * bound_
     bs = (torch.rand(layers, h, generator=gen, **d) * 2 - 1) * bound_
     if unfilmed:
@@ -270,20 +274,23 @@ def main() -> int:
                       trilinear_backward_split(vox, coords, gen),
                       "shape": shape, "card": card}), flush=True)
     del vox, coords
-    args, dy, w0s = trunk_inputs(gen, **TRUNK_SLICE)
-    tt = trunk_times(args, dy, w0s)
-    shape = {k: TRUNK_SLICE[k] for k in ("b", "m", "h", "layers")}
-    for k in ("fwd", "bwd"):
-        print(json.dumps({"kernel": f"siren_trunk_{k}", "shape": TRUNK_SLICE,
-                          "ms": tt[k], "plain_ms": tt[f"{k}_plain"],
-                          "fwd_bwd_ms": tt["fwd_bwd"],
-                          "fwd_bwd_plain_ms": tt["fwd_bwd_plain"],
-                          "library_ms": None,
-                          **trunk_bound(**shape, backward=k == "bwd"),
-                          "card": card}), flush=True)
-    print(json.dumps({"siren_trunk_bwd_split_ms":
-                      trunk_backward_split(args, dy, w0s),
-                      "shape": TRUNK_SLICE, "card": card}), flush=True)
+    for trunk in (TRUNK_SLICE, TRUNK_CIN45):
+        args, dy, w0s = trunk_inputs(gen, **trunk)
+        tt = trunk_times(args, dy, w0s)
+        shape = {k: trunk[k] for k in ("b", "m", "h", "layers")}
+        for k in ("fwd", "bwd"):
+            print(json.dumps({"kernel": f"siren_trunk_{k}", "shape": trunk,
+                              "ms": tt[k], "plain_ms": tt[f"{k}_plain"],
+                              "fwd_bwd_ms": tt["fwd_bwd"],
+                              "fwd_bwd_plain_ms": tt["fwd_bwd_plain"],
+                              "library_ms": None,
+                              **trunk_bound(**shape, cin=trunk.get("cin", 3),
+                                            backward=k == "bwd"),
+                              "card": card}), flush=True)
+        print(json.dumps({"siren_trunk_bwd_split_ms":
+                          trunk_backward_split(args, dy, w0s),
+                          "shape": trunk, "card": card}), flush=True)
+        del args, dy
     return 0
 
 

@@ -6,14 +6,21 @@
     python -m lightning_gan_zoo_tpu_torch.utils.profile_superstep \\
         +expt=wgan dataset=synthetic calc_fid=False '~figures' \\
         save_ckpts=False train.num_epochs=1
+    python -m lightning_gan_zoo_tpu_torch.data.procedural build/birds
+    python -m lightning_gan_zoo_tpu_torch.utils.profile_superstep \\
+        +expt=anigan machine=small '~figures' \\
+        filepaths.birds_root=build/birds/images \\
+        filepaths.birds_analysis_root=build/birds/analysis \\
+        'resolution_annealing.update_epochs=[1,2]' train.num_epochs=3
 
 For every epoch of the config's schedule (batch size, resolution,
 accumulation) it builds the Trainer's task on the card, takes one loader
-stack, runs warm-up supersteps, times ``--steps`` supersteps by the host
-clock between two synchronisations (images/s), then traces ``--trace``
+stack (the host seconds the loader took to make it are printed too), runs
+warm-up supersteps, times ``--steps`` supersteps by the host clock between
+two synchronisations (images/s), then traces ``TRACED``
 supersteps with ``torch.profiler``: the device-busy share is the union of
 the kernels' intervals over the traced window, and device time is summed by
-kind and by kernel. Tracing adds host time to every launch, so a
+kind and by kernel, and host time by operator. Tracing adds host time to every launch, so a
 launch-bound superstep looks idler traced than it is; the busy time per
 superstep over the untraced superstep's wall time is printed beside it.
 Prints one JSON line per epoch, the card's name and power limit beside the
@@ -39,6 +46,9 @@ KINDS = (("trunk forward", ("trunk_fwd",)),
                           "implicit", "winograd", "fft")),
          ("matmul", ("gemm", "cutlass", "xmma", "sm90", "cublas")),
          ("sort / scan", ("sort", "scan", "cumprod", "cumsum", "radix")),
+         ("linear solve", ("getrf", "getrs", "trsm", "lu_", "solve",
+                           "magma", "laswp")),
+         ("distances", ("cdist",)),
          ("reduction", ("reduce", "norm")),
          ("elementwise", ("elementwise", "vectorized", "unrolled", "fill",
                           "copy", "cat", "index", "gather", "where")))
@@ -90,6 +100,12 @@ def device_time(prof) -> Tuple[Dict[str, float], Dict[str, float], float,
     return by_kind, by_name, _union_us(spans) / 1e3, len(spans)
 
 
+def host_time(prof) -> Dict[str, float]:
+    """Host ms by operator (self time), the TOP largest."""
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {e.key[:80]: e.self_cpu_time_total / 1e3 for e in ops[:TOP]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=6,
@@ -102,7 +118,7 @@ def main(argv=None) -> int:
     from ..config import compose
     from ..runtime.loop import Trainer
     from ..runtime.state import create_train_state
-    from ..runtime.steps import superstep
+    from ..runtime.steps import map_batch, superstep
 
     cfg = compose(repo / "conf", [*overrides, "output_root=build/profile",
                                   "version=profile"])
@@ -116,8 +132,10 @@ def main(argv=None) -> int:
         loader = trainer._make_train_loader()
         accum = trainer._accum_factor()
         n_micro = loader.n_micro // trainer._active_fold
-        stack = trainer._to_device(next(iter(loader.epoch(epoch))))
-        batch = {k: v[:n_micro] for k, v in stack.items()}
+        t_load = time.perf_counter()
+        stack = next(iter(loader.epoch(epoch)))
+        load_s = time.perf_counter() - t_load
+        batch = map_batch(lambda v: v[:n_micro], trainer._to_device(stack))
 
         def step():
             return superstep(task, trainer.state, batch, trainer.disc_freq,
@@ -152,10 +170,12 @@ def main(argv=None) -> int:
             "device_busy_share": busy_ms / window_ms,
             "busy_ms_per_superstep": busy_ms / TRACED,
             "busy_share_untraced": busy_ms / TRACED / (dt * 1e3 / args.steps),
-            "kernels": n_kernels,
+            "kernels": n_kernels, "loader_s_per_stack": load_s,
+            "stack_images": trainer.current_batch_size * loader.n_micro,
             "device_ms_by_kind": dict(sorted(by_kind.items(),
                                              key=lambda kv: -kv[1])),
             "top_kernels_ms": {name[:120]: ms for name, ms in top},
+            "top_host_ops_ms": host_time(prof),
             "card": card}), flush=True)
     return 0
 

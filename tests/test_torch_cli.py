@@ -1,8 +1,8 @@
 """The port's CLI, run_network_torch.py, at small widths on the CPU: in a
-subprocess it trains HoloGAN, π-GAN and the 2D families through the JAX
-package's conf tree (dc_gan with a checkpoint and a resume from it) and
-loads no JAX module; in-process it refuses what it cannot run with a clear
-message."""
+subprocess it trains HoloGAN, π-GAN, ANIGAN (with its figures) and the 2D
+families through the JAX package's conf tree (dc_gan with a checkpoint and
+a resume from it) and loads no JAX module; in-process it refuses what it
+cannot run with a clear message."""
 import os
 import re
 import subprocess
@@ -99,9 +99,11 @@ def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
-    (["+expt=anigan"], "not yet ported"),
+    (["+nerf.remat=true"], "nerf.remat"),
     (["num_sp=2"], "num_sp"),
     (["save_ckpts_async=true"], "save_ckpts_async"),
+    (["profile=true"], "profile=true"),
+    (["debug.fast_dev_run=true"], "debug.fast_dev_run"),
 ])
 def test_cli_refuses_unported(extra, message, tmp_path, capsys):
     rc = run_network_torch.main(SMALL + extra + [f"output_root={tmp_path}",
@@ -110,12 +112,35 @@ def test_cli_refuses_unported(extra, message, tmp_path, capsys):
     assert message in capsys.readouterr().err
 
 
-def test_cli_refuses_figure_callbacks(tmp_path, capsys):
-    rc = run_network_torch.main([a for a in SMALL if a != "~figures"]
-                                + [f"output_root={tmp_path}",
-                                   "--device", "cpu"])
-    assert rc != 0
-    assert "figure callbacks" in capsys.readouterr().err
+def test_cli_trains_anigan_with_figures_without_jax(tmp_path):
+    """ANIGAN at tiny widths on procedural analysed data (8 images at 16 px,
+    a 42-vertex mesh), bf16 policy, with its config's figures on
+    (machine=local's SampleGrid and ANIGAN's FullShapeAnalysis, one folder
+    per epoch): two epochs, each logging the silhouette loss."""
+    from lightning_gan_zoo_tpu_torch.data.procedural import (
+        overrides, write_analysed_birds)
+    data = overrides(*write_analysed_birds(tmp_path / "birds", n=8,
+                                           img_size=16, subdivisions=1))
+    out = _run_cli(["+expt=anigan", "machine=local", *data,
+                    "model.noise_dim=16", "nerf.siren_dim_hidden=32",
+                    "nerf.siren_num_layers=2", "nerf.n_pts_per_ray=4",
+                    "nerf.n_pts_per_ray_fine=4", "train.features_disc=8",
+                    "train.img_size=16",
+                    "resolution_annealing.resolutions=[8,16,16]",
+                    "variable_batch_size.batch_sizes=[2,2,2]",
+                    "train.num_epochs=2", f"output_root={tmp_path}",
+                    "--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    epochs = re.findall(r"^epoch (\d) \[.*\] (.*)$", out.stdout, re.M)
+    assert [e for e, _ in epochs] == ["0", "1"], out.stdout
+    for _, line in epochs:
+        for k in ("d_loss", "r1", "g_loss", "silhouette"):
+            assert re.search(rf"\b{k}=-?\d", line), line
+    assert "FOREIGN []" in out.stdout
+    figures = tmp_path / "anigan" / "version_0" / "figures"
+    for e in (0, 1):
+        assert {p.name for p in (figures / f"epoch_{e}").iterdir()} == {
+            "SampleGrid.png", "FullShapeAnalysis.png"}
 
 
 @pytest.mark.parametrize("expt,keys", [

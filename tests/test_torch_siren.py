@@ -182,9 +182,10 @@ def test_trunk_function_counts_nothing_on_the_cpu_and_launch_refuses_it():
 
 
 @pytest.mark.parametrize("h,layers,cin,message", [
-    (96, 3, 3, "dim_hidden"), (128, 17, 3, "layers"), (128, 3, 5, "input")])
+    (96, 3, 3, "dim_hidden"), (128, 17, 3, "layers"), (128, 3, 65, "input")])
 def test_kernel_shape_limits_raise(h, layers, cin, message):
-    """Shapes the kernels cannot take raise before any launch."""
+    """Shapes the kernels cannot take (more than 64 input channels among
+    them) raise before any launch."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(2, 10, cin)).astype(np.float32))
     args = (x, torch.zeros(cin, h), torch.zeros(layers - 1, h, h),
