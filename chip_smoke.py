@@ -97,12 +97,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  13. ANIGAN with deformer=displacement at the same width for one epoch:
      both trunks take 45 input channels through the kernels, with the same
      checks of losses and launches.
+ 14. serving: HoloGAN (the validation phase's checkpoint) and π-GAN
+     (machine=small, from its seed) exported with
+     serving/export.py on the card, default (z, seed), pose, dynamic-batch
+     and bf16; each .pt2 loaded back holds one kernel node per kernel call
+     and launches the kernel once per node; the pose programs equal eager
+     generation (HoloGAN torch.equal, π-GAN within 2⁻⁸), the default ones
+     repeat for one seed and move with another, the dynamic ones serve
+     batches 1, 8 and 32; artifact MB and ms per batch of 8 and 32 (CUDA
+     events, median of 20);
+ 15. rescue: a run_network_torch.py subprocess training HoloGAN at config
+     width gets SIGTERM after its second epoch line, exits 0 with one
+     rescue (meta rescue: true); a second run with train.ckpt_dir resumes
+     from it at the next epoch; seconds from signal to exit;
+ 16. HoloGAN with save_ckpts_async and profile=true for 2 epochs: its
+     checkpoint, a synchronous save and an asynchronous save of its final
+     state restore bit for bit; save wall times; the trace's device busy
+     time and top kernels, the trilinear ones named;
+ 17. one π-GAN superstep at 64 px (8 × 4 accumulation) with and without
+     nerf.remat from one seed: equal losses and parameters, trunk forward
+     launches grown by exactly the G micro-steps' recomputes, peak memory
+     and superstep ms of both; then HoloGAN with debug.fast_dev_run and
+     debug.verbose_shape: one superstep, one validation, the shape table;
+ 18. the native image decoder on 512-image JPEG folders at 64 and 32 px
+     written under build/: the port's ImageFolder takes the native route
+     and returns the library's pixels; images/s native and PIL.
 Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
-The last lines are the card's name and power limit, a JSON line describing
-each kernel (launches on the main path and per superstep, error, time
+Each of phases 14–18 prints its seconds. The last lines are the card's
+name and power limit, a JSON line describing
+each kernel (launches on the main paths and per superstep, error, time
 beside its plain version's and the library call's, and its bound from this
 run's shapes; lightning_gan_zoo_tpu_torch/utils/kernel_bench.py), and a
 JSON line {"ok": true, "device": {...}}.
@@ -312,6 +338,16 @@ def kernel_counters():
     return {"trilinear": trilinear, "siren_trunk": siren_trunk}
 
 
+def reset_counts():
+    for c in kernel_counters().values():
+        c.FWD_LAUNCHES = c.BWD_LAUNCHES = 0
+
+
+def read_counts():
+    return {name: {"fwd": c.FWD_LAUNCHES, "bwd": c.BWD_LAUNCHES}
+            for name, c in kernel_counters().items()}
+
+
 def run_main(argv, counter=None, tag="smoke", trainer_cls=None):
     """run_network_torch.main(argv) with every kernel's launch count set to
     0 just before and read just after, output under
@@ -336,18 +372,15 @@ def run_main(argv, counter=None, tag="smoke", trainer_cls=None):
     shutil.rmtree(out_root, ignore_errors=True)
     argv = [*argv, f"output_root={out_root}", "version=smoke", "--device",
             "cuda"]
-    counters = kernel_counters()
     printed = Tee(sys.stdout)
     try:
-        for c in counters.values():
-            c.FWD_LAUNCHES = c.BWD_LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             rc = run_network_torch.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: {"fwd": c.FWD_LAUNCHES, "bwd": c.BWD_LAUNCHES}
-                    for name, c in counters.items()}
+        launches = read_counts()
     finally:
         loop.Trainer = original
     check(rc == 0, f"run_network_torch.main returned {rc}")
@@ -1106,6 +1139,432 @@ def r1_main_path():
           f"bf16 R1 disagrees with f32: {r1}")
 
 
+# ------------------------------------------------------- runtime extras
+#: phase 14's families: HoloGAN from the validation phase's checkpoint,
+#: π-GAN at machine=small from its seed
+SERVING = (("hologan", ["+expt=hologan", "dataset=synthetic",
+                        "calc_fid=False"], "trilinear"),
+           ("pigan", ["+expt=pigan", "machine=small", "dataset=synthetic",
+                      "calc_fid=False", "~figures.anigan_turntable"],
+            "siren_trunk"))
+#: a pose inside both families' ranges: azimuth 250°, elevation 80°
+SERVE_VIEW = [math.radians(250), math.radians(80), 1.0, 0.0, 0.0, 0.0]
+#: the validation phase's run directory (its checkpoint feeds phase 14)
+HOLOGAN_FID_RUN = (REPO / "build" / "chip_smoke_output" / "hologan_fid"
+                   / "hologan" / "smoke")
+
+
+def serving_phase():
+    """Exports of HoloGAN (the validation run's checkpoint) and π-GAN at
+    their config widths on the card, default, pose, dynamic and bf16; each
+    loaded back and run through the kernels."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.config import compose
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.serving import export as ex
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    out = REPO / "build" / "chip_smoke_output" / "serving"
+    shutil.rmtree(out, ignore_errors=True)
+    card = card_line()
+    reset_counts()
+    counts = kernel_counters()
+    for family, argv, kernel in SERVING:
+        ckpt = str(HOLOGAN_FID_RUN / "ckpts") if family == "hologan" else None
+        cfg = compose(REPO / "conf", argv)
+        eager = instantiate(cfg.model.lm, cfg, str(out), device="cuda")
+        if ckpt:
+            ex.load_generator_weights(eager, ckpt)
+        zdim = int(eager.noise_dim)
+        gen = torch.Generator("cuda").manual_seed(21)
+        z8 = torch.randn(8, zdim, generator=gen, device="cuda")
+        views = torch.tensor([SERVE_VIEW], device="cuda").repeat(8, 1)
+        views[:, 0] += torch.arange(8, device="cuda") * 0.1
+        seed = torch.tensor(3, device="cuda")
+        counter = counts[kernel]
+        for variant, kw in (("default", {}), ("pose", {"pose": True}),
+                            ("dynamic", {"dynamic_batch": True}),
+                            ("bf16", {"dtype": "bf16"})):
+            t0 = time.perf_counter()
+            path, sidecar = ex.export_generator(
+                REPO / "conf", argv, 8, out / f"{family}_{variant}.pt2",
+                ckpt=ckpt, device="cuda", **kw)
+            export_s = time.perf_counter() - t0
+            program = torch.export.load(str(path))
+            nodes = ex.kernel_nodes(program)
+            per_call = nodes.get(f"lgzt.{kernel}_fwd.default", 0)
+            check(per_call > 0 and len(nodes) == 1,
+                  f"{family} {variant}: kernel nodes {nodes}")
+            check("lightning_gan_zoo_tpu_torch.ops.cuda" in sidecar["call"]
+                  and sidecar["device"] == "cuda"
+                  and "fallback_reason" not in sidecar,
+                  f"{family} {variant} sidecar {sidecar}")
+            g = program.module()
+            args = (z8, views, seed) if variant == "pose" else (z8, seed)
+            before = counter.FWD_LAUNCHES
+            with torch.no_grad():
+                img = g(*args)
+            torch.cuda.synchronize()
+            check(counter.FWD_LAUNCHES - before == per_call,
+                  f"{family} {variant}: {counter.FWD_LAUNCHES - before} "
+                  f"launches for {per_call} kernel nodes")
+            check(tuple(img.shape) == (8, 3 if family == "hologan" else 4,
+                                       int(cfg.train.img_size),
+                                       int(cfg.train.img_size))
+                  and bool(torch.isfinite(img).all()),
+                  f"{family} {variant} image {tuple(img.shape)}")
+            line = (f"serving {family} {variant}: exported in {export_s:.1f} "
+                    f"s, {path.stat().st_size / 1e6:.2f} MB, batch "
+                    f"{sidecar['batch']}, kernel nodes {nodes}")
+            with torch.no_grad():
+                if variant == "pose":
+                    want = eager.generate(z8, view_in=views)
+                    err = float((img - want).abs().max())
+                    ok = (torch.equal(img, want) if family == "hologan"
+                          else err <= TRUNK_FWD_ATOL)
+                    line += (f"; against eager generate: max|err| {err:.3e}"
+                             f" (limit {'0, torch.equal' if family == 'hologan' else f'{TRUNK_FWD_ATOL:g}'})")
+                    check(ok, f"{family} pose export disagrees with eager: "
+                          f"{err}")
+                elif variant == "default":
+                    again = g(z8, seed)
+                    other = g(z8, torch.tensor(4, device="cuda"))
+                    same = torch.equal(img, again)
+                    moved = float((img - other).abs().max())
+                    line += (f"; same seed same images: {same}, another "
+                             f"seed moves them by {moved:.3e}")
+                    check(same and moved > 1e-3,
+                          f"{family} (z, seed) contract: {same}, {moved}")
+                elif variant == "dynamic":
+                    check(sidecar["batch"] == "dynamic",
+                          f"{family}: the dynamic export fell back")
+                    for b in (1, 8, 32):
+                        zb = torch.randn(b, zdim, generator=gen,
+                                         device="cuda")
+                        out_b = g(zb, seed)
+                        check(out_b.shape[0] == b
+                              and bool(torch.isfinite(out_b).all()),
+                              f"{family} dynamic batch {b}")
+                    zs = {b: torch.randn(b, zdim, generator=gen,
+                                         device="cuda") for b in (8, 32)}
+                    times = {b: kb.median_ms(lambda: g(zs[b], seed))
+                             for b in (8, 32)}
+                    line += ("; served batches 1, 8, 32; ms per batch of 8 "
+                             f"{times[8]:.2f}, of 32 {times[32]:.2f} (CUDA "
+                             f"events, median of 20; {card})")
+                else:
+                    check(sidecar["weights_dtype"] == "bf16",
+                          f"{family} bf16 sidecar")
+            print(line, flush=True)
+        del eager
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    print(f"serving launches {launches}")
+    check(launches["trilinear"]["fwd"] > 0
+          and launches["siren_trunk"]["fwd"] > 0
+          and launches["trilinear"]["bwd"] == 0
+          and launches["siren_trunk"]["bwd"] == 0,
+          f"serving launches {launches}")
+    return launches
+
+
+def rescue_phase():
+    """SIGTERM to a HoloGAN training subprocess at config width after its
+    second epoch line: rc 0, one rescue; then a run resumes from it."""
+    import signal
+    from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+    out_root = REPO / "build" / "chip_smoke_output" / "rescue"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    argv = ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
+            "~figures", "save_ckpts=True", "dataset.n=192"]
+    log = out_root / "first.log"
+    with log.open("w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "run_network_torch.py"), *argv,
+             "train.num_epochs=100", f"output_root={out_root}",
+             "version=first", "--device", "cuda"],
+            cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while "epoch 1 [" not in log.read_text(errors="replace"):
+            check(proc.poll() is None and time.perf_counter() - t0 < 240,
+                  f"the rescue run ended or stalled: "
+                  f"{log.read_text()[-2000:]}")
+            time.sleep(0.05)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        exit_s = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    text = log.read_text()
+    check(rc == 0 and "[rescue] checkpointed epoch" in text,
+          f"the rescue run exited {rc}: {text[-2000:]}")
+    rescues = sorted((out_root / "hologan" / "ckpts_rescue").iterdir())
+    check(len(rescues) == 1, f"rescues {rescues}")
+    meta = json.loads((rescues[0] / "train_meta.json").read_text())
+    check(meta.get("rescue") is True and meta.get("version") == "first",
+          f"rescue meta {meta}")
+    epoch = int(meta["epoch"])
+    trainer, launches, wall, printed = run_main(
+        argv + [f"train.num_epochs={epoch + 2}",
+                f"train.ckpt_dir={out_root / 'hologan' / 'first' / 'ckpts'}"],
+        kt, "rescue_resume")
+    check(f"Resuming from {rescues[0]}" in printed
+          and f"epoch {epoch + 1} [" in printed
+          and f"epoch {epoch} [" not in printed,
+          "the resumed run did not continue from the rescue")
+    print(f"rescue: SIGTERM after the second epoch line, exit 0 in "
+          f"{exit_s:.2f} s from signal to exit (host clock), rescue of epoch "
+          f"{epoch} at {rescues[0].name}, meta {meta}; resumed at epoch "
+          f"{epoch + 1} in {wall:.1f} s, trilinear launches {launches}")
+    return launches
+
+
+def async_profile_phase():
+    """HoloGAN with save_ckpts_async and profile for 2 epochs; its
+    checkpoint against a synchronous save of the same state; the trace."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+    from lightning_gan_zoo_tpu_torch.runtime.checkpoint import (
+        CheckpointManager)
+    from lightning_gan_zoo_tpu_torch.utils import profiling
+    trainer, launches, wall, printed = run_main(
+        ["+expt=hologan", "dataset=synthetic", "calc_fid=False", "~figures",
+         "save_ckpts=True", "save_ckpts_async=True", "profile=true",
+         "dataset.n=384", "train.num_epochs=2"], kt, "hologan_async")
+    want = {"fwd": 3 * 8 + 2, "bwd": 2 * 8}   # 8 supersteps, 2 validations
+    check(launches == want, f"async run launches {launches} != {want}")
+    ckpts = sorted((trainer.logging_dir / "ckpts").iterdir())
+    check([p.name for p in ckpts] == ["model_epoch-1"],
+          f"async checkpoints {ckpts}")
+    payload = trainer.checkpoint_payload()
+    base = trainer.logging_dir / "compare"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync_path = CheckpointManager(base / "sync").save_best(
+        payload, epoch=1, fid=None)
+    sync_s = time.perf_counter() - t0
+    mgr = CheckpointManager(base / "async", async_save=True)
+    t0 = time.perf_counter()
+    async_path = mgr.save_best(payload, epoch=1, fid=None)
+    return_s = time.perf_counter() - t0
+    mgr.finalize()
+    landed_s = time.perf_counter() - t0
+    run_state, run_meta = CheckpointManager.restore(ckpts[0])
+    sync_state, _ = CheckpointManager.restore(sync_path)
+    async_state, _ = CheckpointManager.restore(async_path)
+    check(same_state(run_state, sync_state)
+          and same_state(async_state, sync_state),
+          "an asynchronous checkpoint differs from the synchronous save")
+    trace_dir = trainer.logging_dir / "trace"
+    busy = profiling.device_time_ms(trace_dir)
+    ops = profiling.device_op_times(trace_dir)
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]
+    tri = {k: v for k, v in ops.items() if "trilinear" in k}
+    check(busy > 0 and tri, f"trace: busy {busy} ms, trilinear {tri}")
+    card = card_line()
+    print(f"async checkpoints: the run's checkpoint, a synchronous save and "
+          f"an asynchronous save of its final state restore bit for bit; "
+          f"meta {run_meta}; save wall time (host clock, "
+          f"{sum(v.numel() * v.element_size() for v in walk_tensors(payload)) / 1e6:.1f} MB): synchronous "
+          f"{sync_s:.3f} s, asynchronous {return_s:.3f} s to return and "
+          f"{landed_s:.3f} s to land ({card})")
+    print(f"profile: {trace_dir / 'trace.json'}, device busy "
+          f"{busy:.2f} ms over 5 traced supersteps; top kernels (ms, "
+          f"calls): " + "; ".join(f"{k[:70]} {v[0] / 1e3:.3f}, {v[1]}"
+                                  for k, v in top)
+          + "; trilinear: " + "; ".join(f"{k[:60]} {v[0] / 1e3:.3f}, {v[1]}"
+                                        for k, v in tri.items())
+          + f" ({card})")
+    return launches
+
+
+def walk_tensors(tree):
+    import torch
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from walk_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from walk_tensors(v)
+
+
+def remat_phase():
+    """One π-GAN superstep at 64 px (batch 8, ×4 accumulation) with and
+    without nerf.remat, from the same seed, under deterministic cuDNN (the
+    default cuDNN algorithms make D's weight gradients differ between two
+    runs of the same superstep, remat or not)."""
+    import torch
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        return _remat_runs()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _remat_runs():
+    import torch
+    from lightning_gan_zoo_tpu_torch.config import compose
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
+    from lightning_gan_zoo_tpu_torch.runtime.state import create_train_state
+    from lightning_gan_zoo_tpu_torch.runtime.steps import (microbatch_count,
+                                                           superstep)
+    from lightning_gan_zoo_tpu_torch.utils.profiling import StepTimer
+    out = REPO / "build" / "chip_smoke_output" / "remat"
+    runs = {}
+    reset_counts()
+    for remat in (False, True):
+        cfg = compose(REPO / "conf", PIGAN_ARGV + (
+            ["+nerf.remat=true"] if remat else []))
+        task = instantiate(cfg.model.lm, cfg, str(out), device="cuda")
+        task.increase_resolution(64)
+        check(task.generator.nerf_renderer.remat == remat, "remat switch")
+        df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
+        accum = int(cfg.accumulate_grad_batches.accumulation_factor)
+        n_micro = microbatch_count(df, gf, accum)
+        images = torch.rand(n_micro, 8, 3, 64, 64, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(11)
+                            ) * 2 - 1
+        state = create_train_state(task, steps_per_epoch=4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (st.FWD_LAUNCHES, st.BWD_LAUNCHES)
+        metrics = superstep(task, state, {"image": images}, df, gf, accum)
+        torch.cuda.synchronize()
+        launched = (st.FWD_LAUNCHES - before[0], st.BWD_LAUNCHES - before[1])
+        peak = torch.cuda.max_memory_allocated()
+        params = [p.detach().clone() for net in (task.generator,
+                                                 task.discriminator)
+                  for p in net.parameters()]
+        timer = StepTimer()
+        for _ in range(3):
+            timer.start()
+            superstep(task, state, {"image": images}, df, gf, accum)
+            torch.cuda.synchronize()
+            timer.stop()
+        runs[remat] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                           params=params, launched=launched, peak=peak,
+                           ms=timer.summary(8 * n_micro, skip_first=0)[
+                               "p50_step_s"] * 1e3, gf_micro=gf * accum)
+        del task, state
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    differ = sum(not torch.equal(x, y) for x, y in zip(a["params"],
+                                                       b["params"]))
+    worst = max(float((x - y).abs().max()) for x, y in zip(a["params"],
+                                                           b["params"]))
+    print(f"remat: one π-GAN superstep at 64 px (8 × 4 accum) without and "
+          f"with nerf.remat, deterministic cuDNN: losses {a['metrics']} vs {b['metrics']}; "
+          f"{differ} of {len(a['params'])} parameter tensors differ after "
+          f"the update (max|diff| {worst:.3e}); trunk launches (fwd, bwd) "
+          f"{a['launched']} → {b['launched']}; peak memory "
+          f"{a['peak'] / 2**30:.3f} → {b['peak'] / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); superstep "
+          f"{a['ms']:.1f} → {b['ms']:.1f} ms (host clock between syncs, "
+          f"median of 3; {card_line()})")
+    check(a["metrics"] == b["metrics"] and differ == 0,
+          "the superstep with nerf.remat differs from the one without")
+    check(b["launched"] == (a["launched"][0] + a["gf_micro"],
+                            a["launched"][1]),
+          f"remat launches {b['launched']}, expected the plain run's "
+          f"{a['launched']} + {a['gf_micro']} recomputes")
+    return read_counts()["siren_trunk"]
+
+
+def fast_dev_run_phase():
+    """HoloGAN with debug.fast_dev_run and debug.verbose_shape."""
+    from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+    trainer, launches, wall, printed = run_main(
+        ["+expt=hologan", "dataset=synthetic", "calc_fid=False", "~figures",
+         "save_ckpts=False", "debug.fast_dev_run=true",
+         "debug.verbose_shape=true", "dataset.n=384", "train.num_epochs=3"],
+        kt, "hologan_fast_dev_run")
+    # one superstep (3 forwards, 2 backwards), the table's generate and one
+    # validation's Fake grid
+    want = {"fwd": 3 + 1 + 1, "bwd": 2}
+    fakes = [p.name for p in (trainer.logging_dir / "images").iterdir()
+             if p.name.startswith("Fake")]
+    check(launches == want, f"fast_dev_run launches {launches} != {want}")
+    check(re.findall(r"^epoch (\d+) \[", printed, re.M) == ["0"]
+          and trainer.state.step == 3 and fakes == ["Fake_step3.png"],
+          f"fast_dev_run: {trainer.state.step} steps, {fakes}")
+    table = re.findall(r"^  (\S+)\s+(\S+)\s+(\(.*)$", printed, re.M)
+    check("[debug] generator output shapes (2 samples):" in printed
+          and ("generator", "Generator", "(2, 3, 64, 64)") in table,
+          "the verbose_shape table is missing")
+    print(f"fast_dev_run: one superstep and one validation in {wall:.1f} s, "
+          f"launches {launches}; verbose_shape printed {len(table)} rows")
+    return launches
+
+
+def native_decoder_phase():
+    """512-image JPEG folders at 64 and 32 px: the port's ImageFolder on
+    the native route, its pixels the library's, images/s native and PIL.
+    Where the library cannot be built (no libjpeg/libpng headers), the
+    readers decode with PIL, as the JAX package's do: that is checked and
+    said instead."""
+    import numpy as np
+    from PIL import Image
+    from lightning_gan_zoo_tpu_torch.data import datasets, native_loader
+    native = native_loader.available()
+    if not native:
+        print("native decoder: the library does not build here "
+              "(the reason is printed above); ImageFolder decodes with PIL, "
+              "as the JAX package's does here")
+    rng = np.random.default_rng(0)
+    for size in (64, 32):
+        root = REPO / "build" / f"chip_smoke_jpeg{size}"
+        shutil.rmtree(root, ignore_errors=True)
+        yy, xx = np.mgrid[0:size, 0:size]
+        for i in range(512):
+            cls = root / f"class_{i % 2}"
+            cls.mkdir(parents=True, exist_ok=True)
+            base = (xx * (1 + i % 5) + yy * (1 + i % 3))[..., None] * [1, 2, 3]
+            arr = (base + rng.integers(0, 48, (size, size, 3))) % 256
+            Image.fromarray(arr.astype(np.uint8)).save(cls / f"{i:04d}.jpg",
+                                                       quality=90)
+        ds = datasets.ImageFolder(str(root), img_size=size)
+        paths = [p for p, _ in ds.samples]
+        calls = []
+        original = native_loader.load_batch
+
+        def counted(*a, **kw):
+            out = original(*a, **kw)
+            calls.append(out is not None)
+            return out
+
+        native_loader.load_batch = counted
+        try:
+            t0 = time.perf_counter()
+            got = ds.load(list(range(len(ds))))["image"]
+            load_s = time.perf_counter() - t0
+        finally:
+            native_loader.load_batch = original
+        t0 = time.perf_counter()
+        pil = ds.load_pil(paths)
+        pil_s = time.perf_counter() - t0
+        if native:
+            want = native_loader.load_batch(paths, size, 3, 0.5, 0.5)
+            check(calls == [True] and np.array_equal(got, want),
+                  f"{size} px: the ImageFolder did not take the native route")
+        else:
+            check(np.array_equal(got, pil), f"{size} px: the PIL route")
+        print(f"native decoder, {len(ds)} JPEGs of {size} px: "
+              + (f"{len(ds) / load_s:.1f} images/s native, " if native
+                 else "native not measured (unavailable), ")
+              + f"{len(ds) / pil_s:.1f} PIL (host clock, one pass); "
+              f"max|ImageFolder − PIL| {float(np.abs(got - pil).max()):.4f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     probe()
@@ -1142,11 +1601,27 @@ def main() -> int:
     anigan_launches, anigan_per = anigan_main_path(data)
     torch.cuda.empty_cache()
     disp_launches = anigan_displacement_path(data)
+    extras = {}
+    for name, phase in (("serving", serving_phase), ("rescue", rescue_phase),
+                        ("async_profile", async_profile_phase),
+                        ("remat", remat_phase),
+                        ("fast_dev_run", fast_dev_run_phase),
+                        ("native_decoder", native_decoder_phase)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        extras[name] = phase()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     tri_paths = {"hologan": tri_launches, "hologan_validation": val_launches,
-                  "hologan_eval_only": eval_launches}
+                  "hologan_eval_only": eval_launches,
+                  "hologan_serving": extras["serving"]["trilinear"],
+                  "hologan_rescue_resume": extras["rescue"],
+                  "hologan_async_profile": extras["async_profile"],
+                  "hologan_fast_dev_run": extras["fast_dev_run"]}
     trunk_paths = {"pigan": trunk_launches, "anigan": anigan_launches,
-                   "anigan_displacement": disp_launches}
+                   "anigan_displacement": disp_launches,
+                   "pigan_serving": extras["serving"]["siren_trunk"],
+                   "pigan_remat_supersteps": extras["remat"]}
     kernels = [
         {"name": f"trilinear_{k}", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k],

@@ -1,11 +1,12 @@
 """Dataset readers for the port (counterpart of
-lightning_gan_zoo_tpu/data/datasets.py): ``ImageFolder`` and ``MNIST``
-decode with numpy and PIL as the JAX package's PIL path does (its native
-fastimage decoder is not ported), ``Synthetic`` makes each image from
-its index, and ``AnimalAnalysisFolder`` adds ANIGAN's per-image shape
-analyses. ``load`` returns NHWC float32 numpy arrays normalised as
-(x/255 − mean)/std, exactly as the JAX package's readers do; the Trainer
-moves them to the device in NCHW."""
+lightning_gan_zoo_tpu/data/datasets.py). ``ImageFolder`` (and
+``AnimalAnalysisFolder``, which adds ANIGAN's per-image shape analyses)
+decodes through the native fastimage library first, as the JAX package
+does by default (data/native_loader.py), and through PIL for a file the
+library refuses or when it cannot be built; ``MNIST`` decodes with numpy
+and PIL; ``Synthetic`` makes each image from its index. ``load`` returns
+NHWC float32 numpy arrays normalised as (x/255 − mean)/std, exactly as the
+JAX package's readers do; the Trainer moves them to the device in NCHW."""
 from __future__ import annotations
 
 import gzip
@@ -14,6 +15,8 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 import numpy as np
+
+from . import native_loader
 
 _IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm", ".tif",
              ".tiff"}
@@ -63,7 +66,8 @@ class Synthetic:
 
 class ImageFolder:
     """Class-per-subdirectory image folder (torchvision.datasets.ImageFolder
-    semantics): PIL decode, bilinear resize to img_size."""
+    semantics): native decode (PIL where the library refuses a file or is
+    unavailable), bilinear resize to img_size."""
 
     def __init__(self, root: str, img_size: int = 64, n_channels: int = 3,
                  data_mean: float = 0.5, data_std: float = 0.5, **_ignored):
@@ -87,19 +91,31 @@ class ImageFolder:
         return len(self.samples)
 
     def load(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        paths = [self.samples[int(i)][0] for i in indices]
+        labels = np.asarray([self.samples[int(i)][1] for i in indices],
+                            np.int32)
+        try:
+            imgs = native_loader.load_batch(paths, self.img_size,
+                                            self.n_channels, self.mean,
+                                            self.std)
+        except IOError:      # a format the native decoder refuses
+            imgs = None
+        if imgs is None:
+            imgs = self.load_pil(paths)
+        return {"image": imgs, "label": labels}
+
+    def load_pil(self, paths) -> np.ndarray:
+        """The PIL route: decode, bilinear resize, normalise."""
         from PIL import Image
         s = self.img_size
-        imgs = np.empty((len(indices), s, s, self.n_channels), np.float32)
-        for j, i in enumerate(indices):
-            with Image.open(self.samples[int(i)][0]) as im:
+        imgs = np.empty((len(paths), s, s, self.n_channels), np.float32)
+        for j, path in enumerate(paths):
+            with Image.open(path) as im:
                 im = im.convert("RGB" if self.n_channels == 3 else "L")
                 im = im.resize((s, s), Image.BILINEAR)
                 arr = np.asarray(im, np.float32) / 255.0
             imgs[j] = arr[..., None] if arr.ndim == 2 else arr
-        labels = np.asarray([self.samples[int(i)][1] for i in indices],
-                            np.int32)
-        return {"image": _normalise(imgs, self.mean, self.std),
-                "label": labels}
+        return _normalise(imgs, self.mean, self.std)
 
 
 class AnimalAnalysisFolder(ImageFolder):

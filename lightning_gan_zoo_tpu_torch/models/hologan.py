@@ -75,6 +75,34 @@ def sample_view(generator: torch.Generator, batch_size: int, view_args
     return torch.stack([theta, gamma, scale, tx, ty, tz], dim=1)
 
 
+def view_from_uniforms(u: torch.Tensor, view_args) -> torch.Tensor:
+    """``sample_view``'s ranges applied to given uniforms: (B, 6) floats in
+    [0, 1) → (B, 6) views. An integer degree lo + ⌊u·(hi − lo)⌋ for azimuth
+    and elevation, one scale per batch (row 0's), uniform translations.
+    The serving export draws ``u`` from a seed inside the program."""
+    va = view_args
+
+    def uniform(lo, hi, x):
+        return float(lo) + (float(hi) - float(lo)) * x
+
+    def degrees(lo, hi, x):
+        return (int(lo) + torch.floor(x * (int(hi) - int(lo)))) * (
+            math.pi / 180.0)
+
+    az_lo = int(va["azimuth_low"])
+    theta = degrees(az_lo, max(int(va["azimuth_high"]), az_lo + 1), u[:, 0])
+    if int(va["elevation_low"]) < int(va["elevation_high"]):
+        gamma = degrees(va["elevation_low"], va["elevation_high"], u[:, 1])
+    else:
+        gamma = torch.zeros_like(u[:, 1])
+    scale = uniform(va["scale_low"], va["scale_high"], u[:1, 2]).expand(
+        u.shape[0])
+    tx = uniform(va["transX_low"], va["transX_high"], u[:, 3])
+    ty = uniform(va["transY_low"], va["transY_high"], u[:, 4])
+    tz = uniform(va["transZ_low"], va["transZ_high"], u[:, 5])
+    return torch.stack([theta, gamma, scale, tx, ty, tz], dim=1)
+
+
 def _rigid_matrices(view: torch.Tensor) -> torch.Tensor:
     """Per-sample 4×4 transform T·S·R."""
     theta, gamma, scale, tx, ty, tz = view.unbind(1)

@@ -43,10 +43,25 @@ def sample_pigan_view(generator: torch.Generator, batch_size: int,
                         zeros, zeros, zeros], dim=1)
 
 
+def pigan_view_from_uniforms(u: torch.Tensor, azimuth_low: float,
+                             azimuth_high: float) -> torch.Tensor:
+    """``sample_pigan_view``'s range applied to given uniforms: (B, ≥1)
+    floats in [0, 1) → (B, 6) view rows, azimuth lo + ⌊u·(hi − lo)⌋
+    degrees. The serving export draws ``u`` from a seed inside the
+    program."""
+    lo = int(azimuth_low)
+    hi = max(int(azimuth_high), lo + 1)
+    az = lo + torch.floor(u[:, 0] * (hi - lo))
+    zeros = torch.zeros_like(az)
+    return torch.stack([torch.deg2rad(az), zeros, torch.ones_like(zeros),
+                        zeros, zeros, zeros], dim=1)
+
+
 class Generator(nn.Module):
-    """The config's ``nerf`` node sizes the renderer; ``precision`` 16 picks
-    the bf16 SIREN policy. (The config's channels_noise, channels_img and
-    features_g keys size nothing here: the registry drops them.)"""
+    """The config's ``nerf`` node sizes the renderer (``nerf.remat``
+    recomputes the field in the backward); ``precision`` 16 picks the bf16
+    SIREN policy. (The config's channels_noise, channels_img and features_g
+    keys size nothing here: the registry drops them.)"""
 
     def __init__(self, nerf_cfg, view_args, img_size: int = 64,
                  precision: int = 32,
@@ -73,7 +88,8 @@ class Generator(nn.Module):
             deformer=deformer,
             siren_input_channels=(3 if deformer is None
                                   else int(deformer.siren_input_channels)),
-            generator=init_generator)
+            generator=init_generator,
+            remat=bool(nc.get("remat", False)))
 
     @property
     def deformer(self) -> Optional[nn.Module]:
@@ -101,7 +117,8 @@ class Generator(nn.Module):
         else a view drawn from ``view_generator``. ``ray_scale`` (B,)
         divides each sample's NDC ray grid. ``deformation`` (ANIGAN:
         deformation_parameters, deformed_verts, mean_shape_verts,
-        kp_verts) and ``deform_generator`` go to the field."""
+        kp_verts, or deform_noise) and ``deform_generator`` go to the
+        field."""
         res = int(sample_res or self.img_size)
         b = z.shape[0]
         rays_xy = sample_full_xys(b, res, device=z.device)

@@ -10,12 +10,21 @@ from explicit ``torch.Generator``s. ANIGAN's field (``single_shape``) takes
 a deformer, and the deformation inputs pass through both passes to it. ``torch.sort`` orders the fine depths
 (the JAX package's gather-gradient sort was a TPU workaround; the depths
 carry no gradient). Ray sharding over devices (``num_sp``) is not ported.
+
+``remat`` (``nerf.remat``) runs each field evaluation that records
+gradients under ``torch.utils.checkpoint`` (non-reentrant): its activations
+are dropped after the forward and recomputed in the backward, trading the
+field's forward (the trunk kernel's included) for memory, as the JAX
+renderer's ``nn.remat`` does. The field draws no random numbers except
+ANIGAN's deformation noise without shape analyses; the recompute replays
+that stream's state, so it is exact.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .cameras import OrthographicCameras, world_rays_from_ndc
@@ -99,8 +108,10 @@ class RadianceFieldRenderer(nn.Module):
                  white_bg: bool, single_shape: bool = False,
                  bf16: bool = False, deformer: Optional[nn.Module] = None,
                  siren_input_channels: int = 3,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         self.n_pts, self.n_fine = int(n_pts_per_ray), int(n_pts_per_ray_fine)
         self.min_depth, self.max_depth = float(min_depth), float(max_depth)
         self.stratified, self.stratified_test = stratified, stratified_test
@@ -116,12 +127,36 @@ class RadianceFieldRenderer(nn.Module):
                 latent_z_dim, siren_num_layers, siren_dim_hidden, bf16=bf16,
                 generator=generator)
 
+    def _field(self, pts, dirs_n, z, field_kw):
+        """One field evaluation; with ``remat`` and gradients on, under
+        ``torch.utils.checkpoint``."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return self.rad_field(pts, dirs_n, z, **field_kw)
+        gen = field_kw.get("deform_generator")
+        start = gen.get_state() if gen is not None else None
+        calls = []
+
+        def run(pts, dirs_n, z):
+            if not calls or gen is None:
+                calls.append(1)
+                return self.rad_field(pts, dirs_n, z, **field_kw)
+            now = gen.get_state()         # the recompute: the same draws,
+            gen.set_state(start)          # the stream left where it was
+            try:
+                return self.rad_field(pts, dirs_n, z, **field_kw)
+            finally:
+                gen.set_state(now)
+
+        return torch.utils.checkpoint.checkpoint(
+            run, pts, dirs_n, z, use_reentrant=False,
+            preserve_rng_state=False)
+
     def _render_core(self, origins, dirs_n, depths, z, stratify: bool,
                      fine_generator, field_kw):
         """Coarse + fine render of one set of rays → (B, N, 4) fine RGBA."""
         with torch.no_grad():
             pts = origins[:, :, None] + depths[..., None] * dirs_n[:, :, None]
-            dens_c, cols_c = self.rad_field(pts, dirs_n, z, **field_kw)
+            dens_c, cols_c = self._field(pts, dirs_n, z, field_kw)
             _, weights_c = ea_raymarch(dens_c.float(), cols_c.float(),
                                        self.white_bg)
             mids = 0.5 * (depths[..., 1:] + depths[..., :-1])
@@ -131,7 +166,7 @@ class RadianceFieldRenderer(nn.Module):
             depths_f = torch.sort(torch.cat([depths, z_samples], -1),
                                   dim=-1).values
         pts_f = origins[:, :, None] + depths_f[..., None] * dirs_n[:, :, None]
-        dens_f, cols_f = self.rad_field(pts_f, dirs_n, z, **field_kw)
+        dens_f, cols_f = self._field(pts_f, dirs_n, z, field_kw)
         rgba, _ = ea_raymarch(dens_f.float(), cols_f.float(), self.white_bg)
         return rgba
 

@@ -16,7 +16,7 @@ bf16, takes the sine argument in f32 and uses ``fast_sin``; under precision
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -209,7 +209,8 @@ class SirenSingleShape(nn.Module):
 
     Without deformation inputs the field reads uniform noise in place of the
     deformed points, drawn from ``deform_generator`` (the reference draws
-    ``torch.rand``)."""
+    ``torch.rand``), or made by ``deform_noise(shape)`` where one is given
+    (the serving program's seeded draw)."""
 
     def __init__(self, latent_z_dim: int, num_layers: int, dim_hidden: int,
                  deformer: Optional[nn.Module] = None, input_channels: int = 3,
@@ -236,7 +237,9 @@ class SirenSingleShape(nn.Module):
     def forward(self, points: torch.Tensor, directions: torch.Tensor,
                 z: torch.Tensor, deformation_parameters=None,
                 deformed_verts=None, mean_shape_verts=None, kp_verts=None,
-                deform_generator: Optional[torch.Generator] = None):
+                deform_generator: Optional[torch.Generator] = None,
+                deform_noise: Optional[Callable[[Tuple[int, ...]],
+                                                torch.Tensor]] = None):
         """points (B, N, P, 3), directions (B, N, 3) → (densities
         (B, N, P, 1), colours (B, N, P, 3))."""
         b, n, p, _ = points.shape
@@ -250,6 +253,8 @@ class SirenSingleShape(nn.Module):
                 points.reshape(b, -1, 3), deformed_verts, mean_shape_verts,
                 kp_verts, deformation_parameters)
             deformed = deformed.reshape(b, n * p, self.input_channels)
+        elif deform_noise is not None:
+            deformed = deform_noise((b, n * p, self.input_channels))
         else:
             deformed = torch.rand((b, n * p, self.input_channels),
                                   generator=deform_generator,

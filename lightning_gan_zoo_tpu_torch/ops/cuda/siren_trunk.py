@@ -13,12 +13,20 @@ stash to device scratch in 8-row slabs, the operand layout of the weight
 gradient's split-K ``wgmma`` GEMM, and reduces every partial sum in a fixed
 order. The source sets all of this out.
 
-``siren_trunk`` is a ``torch.autograd.Function``:
-  * a CUDA tensor launches the kernel or raises — there is no fallback;
-  * a CPU tensor takes the plain version (ops/siren_trunk.py), forward and
-    backward;
-  * the output and every gradient are deterministic (no atomics); the
-    gradients are float32.
+Each direction is a ``torch.library`` custom op, ``lgzt::siren_trunk_fwd``
+and ``lgzt::siren_trunk_bwd``, so ``torch.export`` records one graph node per
+kernel call and an exported generator launches the kernel when it runs:
+  * the CUDA implementation launches the kernel or raises — there is no
+    fallback; the CPU implementation is the plain version
+    (ops/siren_trunk.py); the dispatcher picks one by the tensors' device;
+  * the sine frequencies ``w0s`` (a float list) and the packed weights
+    (``pack_weights``, made by ``siren_trunk`` once per call on a card and
+    saved for the backward; None on the CPU) are arguments of both ops;
+  * the fake implementation checks the widths the kernels take and gives
+    the output's shape, a symbolic batch included;
+  * ``siren_trunk_fwd``'s autograd formula calls ``siren_trunk_bwd``; the
+    output and every gradient are deterministic (no atomics); the gradients
+    are float32.
 
 ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel calls (one backward call
 launches the chain, split-K and reduction kernels), so a run can show that
@@ -27,7 +35,7 @@ its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -78,8 +86,8 @@ def check_shapes(x, w0k, wmid, bs, gammas, betas, w0s) -> Tuple[int, ...]:
     return b, m, cin, h, L, n_film
 
 
-def _check_kernel_shape(b: int, cin: int, h: int, L: int):
-    """What the kernels take beyond a consistent call."""
+def check_widths(cin: int, h: int, L: int):
+    """The widths the kernels take beyond a consistent call."""
     if h not in SUPPORTED_H:
         raise ValueError(f"siren trunk kernel: dim_hidden {h} not in "
                          f"{SUPPORTED_H}")
@@ -89,6 +97,11 @@ def _check_kernel_shape(b: int, cin: int, h: int, L: int):
     if not 1 <= cin <= MAX_CIN:
         raise ValueError(f"siren trunk kernel: {cin} input channels, needs "
                          f"1...{MAX_CIN}")
+
+
+def _check_kernel_shape(b: int, cin: int, h: int, L: int):
+    """What the kernels take beyond a consistent call."""
+    check_widths(cin, h, L)
     if not 0 < b <= _MAX_GRID_Y:
         raise ValueError(f"siren trunk kernel: batch {b} out of range")
 
@@ -229,29 +242,67 @@ def launch_backward(x, w0k, wmid, bs, gammas, betas, dy, w0s, wpack=None
     return dx, dw0, dwm, db, dg, dbt
 
 
-class _SirenTrunk(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w0k, wmid, bs, gammas, betas, w0s):
-        ctx.save_for_backward(x, w0k, wmid, bs, gammas, betas)
-        ctx.w0s = tuple(w0s)
-        if x.device.type == "cpu":
-            return plain.trunk_forward(x, w0k, wmid, bs, gammas, betas, w0s)
-        b, _, cin, h, L, _ = check_shapes(x, w0k, wmid, bs, gammas, betas,
-                                          w0s)
-        _check_kernel_shape(b, cin, h, L)
-        ctx.wpack = pack_weights(wmid)   # once per call: the backward's too
-        return launch_forward(x, w0k, wmid, bs, gammas, betas, w0s,
-                              ctx.wpack)
+@torch.library.custom_op("lgzt::siren_trunk_fwd", mutates_args=(),
+                         device_types="cuda")
+def siren_trunk_fwd(x: torch.Tensor, w0k: torch.Tensor, wmid: torch.Tensor,
+                    bs: torch.Tensor, gammas: torch.Tensor,
+                    betas: torch.Tensor, w0s: Sequence[float],
+                    wpack: Optional[torch.Tensor]) -> torch.Tensor:
+    """The trunk's forward: (B, M, H) bf16."""
+    return launch_forward(x, w0k, wmid, bs, gammas, betas, w0s, wpack)
 
-    @staticmethod
-    def backward(ctx, dy):
-        saved = ctx.saved_tensors
-        if dy.device.type == "cpu":
-            grads = plain.trunk_backward(*saved, dy, ctx.w0s)
-        else:
-            grads = launch_backward(*saved, dy.to(torch.bfloat16).contiguous(),
-                                    ctx.w0s, ctx.wpack)
-        return (*grads, None)
+
+@siren_trunk_fwd.register_kernel("cpu")
+def _siren_trunk_fwd_cpu(x, w0k, wmid, bs, gammas, betas, w0s, wpack):
+    return plain.trunk_forward(x, w0k, wmid, bs, gammas, betas, w0s)
+
+
+@siren_trunk_fwd.register_fake
+def _siren_trunk_fwd_fake(x, w0k, wmid, bs, gammas, betas, w0s, wpack):
+    b, m, cin, h, L, _ = check_shapes(x, w0k, wmid, bs, gammas, betas, w0s)
+    if x.device.type == "cuda":
+        check_widths(cin, h, L)
+    return x.new_empty((b, m, h), dtype=torch.bfloat16)
+
+
+@torch.library.custom_op("lgzt::siren_trunk_bwd", mutates_args=(),
+                         device_types="cuda")
+def siren_trunk_bwd(x: torch.Tensor, w0k: torch.Tensor, wmid: torch.Tensor,
+                    bs: torch.Tensor, gammas: torch.Tensor,
+                    betas: torch.Tensor, dy: torch.Tensor,
+                    w0s: Sequence[float], wpack: Optional[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+    """The trunk's backward: [dx, dW0, dWmid, db, dγ, dβ], float32."""
+    return list(launch_backward(x, w0k, wmid, bs, gammas, betas, dy, w0s,
+                                wpack))
+
+
+@siren_trunk_bwd.register_kernel("cpu")
+def _siren_trunk_bwd_cpu(x, w0k, wmid, bs, gammas, betas, dy, w0s, wpack):
+    return list(plain.trunk_backward(x, w0k, wmid, bs, gammas, betas, dy,
+                                     w0s))
+
+
+@siren_trunk_bwd.register_fake
+def _siren_trunk_bwd_fake(x, w0k, wmid, bs, gammas, betas, dy, w0s, wpack):
+    return [torch.empty_like(t, dtype=torch.float32)
+            for t in (x, w0k, wmid, bs, gammas, betas)]
+
+
+def _setup_context(ctx, inputs, output):
+    x, w0k, wmid, bs, gammas, betas, w0s, wpack = inputs
+    ctx.save_for_backward(x, w0k, wmid, bs, gammas, betas, wpack)
+    ctx.w0s = list(w0s)
+
+
+def _backward(ctx, dy):
+    *saved, wpack = ctx.saved_tensors
+    grads = siren_trunk_bwd(*saved, dy.to(torch.bfloat16).contiguous(),
+                            ctx.w0s, wpack)
+    return (*grads, None, None)
+
+
+siren_trunk_fwd.register_autograd(_backward, setup_context=_setup_context)
 
 
 def siren_trunk(x: torch.Tensor, w0k: torch.Tensor, wmid: torch.Tensor,
@@ -264,5 +315,10 @@ def siren_trunk(x: torch.Tensor, w0k: torch.Tensor, wmid: torch.Tensor,
     layers. w0s: the L sine frequencies. Returns (B, M, H) bf16. On a card
     the kernels take H in SUPPORTED_H, 2..16 layers and 1..64 input channels;
     any other shape raises."""
-    check_shapes(x, w0k, wmid, bs, gammas, betas, w0s)
-    return _SirenTrunk.apply(x, w0k, wmid, bs, gammas, betas, tuple(w0s))
+    _, _, cin, h, L, _ = check_shapes(x, w0k, wmid, bs, gammas, betas, w0s)
+    wpack = None
+    if x.device.type == "cuda":
+        check_widths(cin, h, L)
+        wpack = pack_weights(wmid.detach())  # once per call: the backward's too
+    return siren_trunk_fwd(x, w0k, wmid, bs, gammas, betas,
+                           [float(w) for w in w0s], wpack)

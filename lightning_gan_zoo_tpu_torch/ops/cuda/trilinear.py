@@ -12,11 +12,19 @@ rather than scatters: it builds an inverse map (each voxel's (point, corner)
 entries, sorted) in integer scratch, then sums every voxel's bin in that
 fixed order; the source sets this out.
 
-``trilinear_resample`` is a ``torch.autograd.Function``:
-  * a CUDA tensor launches the kernel or raises — there is no fallback;
-  * a CPU tensor takes the plain version (ops/grid_sample.py);
-  * the coordinate gradient is ``None``: HoloGAN's coordinates come from
+Each direction is a ``torch.library`` custom op, ``lgzt::trilinear_fwd``
+and ``lgzt::trilinear_bwd``, so ``torch.export`` records one graph node per
+kernel call and an exported generator launches the kernel when it runs:
+  * the CUDA implementation launches the kernel or raises — there is no
+    fallback; the CPU implementation is the plain version
+    (ops/grid_sample.py); the dispatcher picks one by the tensors' device;
+  * the fake implementation gives the output's shape from the inputs',
+    a symbolic batch included;
+  * ``trilinear_fwd``'s autograd formula calls ``trilinear_bwd``; the
+    coordinate gradient is ``None``: HoloGAN's coordinates come from
     sampled views, not from parameters (as the TPU kernel's ``_bwd_rule``);
+  * under CUDA autocast the inputs are cast to float32 and the op runs
+    with autocast off;
   * the volume gradient uses no float atomics: it is bit-identical from
     call to call, and equals ``ordered_vox_grad``, the same summation order
     written in plain PyTorch (which nothing on the main path calls).
@@ -26,6 +34,8 @@ launches the map's two kernels and the gather), so a run can show that its
 main path went through the kernels.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -184,26 +194,60 @@ def ordered_vox_grad(coords: torch.Tensor, g: torch.Tensor, vox_shape
     return out.reshape(vox_shape)
 
 
-class _TrilinearResample(torch.autograd.Function):
-    @staticmethod
-    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
-    def forward(ctx, voxels, coords):
-        ctx.save_for_backward(coords)
-        ctx.vox_shape = tuple(voxels.shape)
-        if voxels.device.type == "cpu":
-            return grid_sample.trilinear_resample(voxels, coords)
-        return launch_forward(voxels, coords)
+@torch.library.custom_op("lgzt::trilinear_fwd", mutates_args=(),
+                         device_types="cuda")
+def trilinear_fwd(voxels: torch.Tensor, coords: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B,D,H,W,C) f32 volume, (B,N,3) f32 points → (B,N,C) f32."""
+    return launch_forward(voxels, coords)
 
-    @staticmethod
-    @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, g):
-        (coords,) = ctx.saved_tensors
-        if g.device.type == "cpu":
-            dvox = grid_sample.trilinear_resample_vox_grad(
-                coords, g, ctx.vox_shape)
-        else:
-            dvox = launch_backward(coords, g.contiguous(), ctx.vox_shape)
-        return dvox, None
+
+@trilinear_fwd.register_kernel("cpu")
+def _trilinear_fwd_cpu(voxels, coords):
+    return grid_sample.trilinear_resample(voxels, coords)
+
+
+@trilinear_fwd.register_fake
+def _trilinear_fwd_fake(voxels, coords):
+    if voxels.dim() != 5 or coords.dim() != 3 or coords.shape[2] != 3:
+        raise ValueError(f"trilinear: voxels {tuple(voxels.shape)}, coords "
+                         f"{tuple(coords.shape)}")
+    b, c = voxels.shape[0], voxels.shape[4]
+    return voxels.new_empty((b, coords.shape[1], c))
+
+
+@torch.library.custom_op("lgzt::trilinear_bwd", mutates_args=(),
+                         device_types="cuda")
+def trilinear_bwd(coords: torch.Tensor, g: torch.Tensor,
+                  vox_shape: Sequence[int]) -> torch.Tensor:
+    """The (B,D,H,W,C) f32 volume gradient of the (B,N,C) cotangent g."""
+    return launch_backward(coords, g, tuple(vox_shape))
+
+
+@trilinear_bwd.register_kernel("cpu")
+def _trilinear_bwd_cpu(coords, g, vox_shape):
+    return grid_sample.trilinear_resample_vox_grad(coords, g,
+                                                   tuple(vox_shape))
+
+
+@trilinear_bwd.register_fake
+def _trilinear_bwd_fake(coords, g, vox_shape):
+    return g.new_empty(tuple(vox_shape))
+
+
+def _setup_context(ctx, inputs, output):
+    voxels, coords = inputs
+    ctx.save_for_backward(coords)
+    ctx.vox_shape = tuple(voxels.shape)
+
+
+def _backward(ctx, g):
+    (coords,) = ctx.saved_tensors
+    return trilinear_bwd(coords, g.contiguous(), ctx.vox_shape), None
+
+
+trilinear_fwd.register_autograd(_backward, setup_context=_setup_context)
+trilinear_fwd.register_autocast("cuda", torch.float32)
 
 
 def trilinear_resample(voxels: torch.Tensor, coords: torch.Tensor
@@ -211,4 +255,4 @@ def trilinear_resample(voxels: torch.Tensor, coords: torch.Tensor
     """Border-clamped trilinear resample. voxels (B,D,H,W,C), coords (B,N,3)
     in voxel units (x→W, y→H, z→D). Returns (B,N,C) float32. Gradient flows
     to ``voxels`` only."""
-    return _TrilinearResample.apply(voxels, coords)
+    return trilinear_fwd(voxels, coords)

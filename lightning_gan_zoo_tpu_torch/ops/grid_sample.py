@@ -14,6 +14,29 @@ from __future__ import annotations
 import torch
 
 
+def _corners(coords: torch.Tensor, vox_shape):
+    """The eight corners of each point: (flat voxel index (B, N), weight
+    (B, N, 1)), in the order the resample sums them. Indices are clamped
+    independently from the unclamped floor; weights come from the unclamped
+    fractions."""
+    _, d, h, w, _ = vox_shape
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    x0, y0, z0 = torch.floor(x), torch.floor(y), torch.floor(z)
+    x0l, y0l, z0l = x0.long(), y0.long(), z0.long()
+    xs = (x0l.clamp(0, w - 1), (x0l + 1).clamp(0, w - 1))
+    ys = (y0l.clamp(0, h - 1), (y0l + 1).clamp(0, h - 1))
+    zs = (z0l.clamp(0, d - 1), (z0l + 1).clamp(0, d - 1))
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    fz = (z - z0)[..., None]
+    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
+    corners = [(0, 0, 0, gx * gy * gz), (0, 1, 0, gx * fy * gz),
+               (0, 0, 1, fx * gy * gz), (0, 1, 1, fx * fy * gz),
+               (1, 0, 0, gx * gy * fz), (1, 1, 0, gx * fy * fz),
+               (1, 0, 1, fx * gy * fz), (1, 1, 1, fx * fy * fz)]
+    return [((zs[k] * h + ys[j]) * w + xs[i], wt) for k, j, i, wt in corners]
+
+
 def trilinear_resample(voxels: torch.Tensor, coords: torch.Tensor
                        ) -> torch.Tensor:
     """Sample a voxel grid at continuous coordinates with trilinear weights.
@@ -28,34 +51,12 @@ def trilinear_resample(voxels: torch.Tensor, coords: torch.Tensor
       (B, N, C) interpolated features.
     """
     b, d, h, w, c = voxels.shape
-    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
-    x0, y0, z0 = torch.floor(x), torch.floor(y), torch.floor(z)
-    # corner indices clamped independently from the UNCLAMPED floor
-    x0l, y0l, z0l = x0.long(), y0.long(), z0.long()
-    x0i, x1i = x0l.clamp(0, w - 1), (x0l + 1).clamp(0, w - 1)
-    y0i, y1i = y0l.clamp(0, h - 1), (y0l + 1).clamp(0, h - 1)
-    z0i, z1i = z0l.clamp(0, d - 1), (z0l + 1).clamp(0, d - 1)
-
     flat = voxels.reshape(b, d * h * w, c)
-
-    def gather(zi, yi, xi):
-        idx = (zi * h + yi) * w + xi                       # (B, N)
-        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
-
-    # weights from the unclamped fractions
-    fx = (x - x0)[..., None]
-    fy = (y - y0)[..., None]
-    fz = (z - z0)[..., None]
-    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
-
-    return (gather(z0i, y0i, x0i) * (gx * gy * gz)
-            + gather(z0i, y1i, x0i) * (gx * fy * gz)
-            + gather(z0i, y0i, x1i) * (fx * gy * gz)
-            + gather(z0i, y1i, x1i) * (fx * fy * gz)
-            + gather(z1i, y0i, x0i) * (gx * gy * fz)
-            + gather(z1i, y1i, x0i) * (gx * fy * fz)
-            + gather(z1i, y0i, x1i) * (fx * gy * fz)
-            + gather(z1i, y1i, x1i) * (fx * fy * fz))
+    out = None
+    for idx, wt in _corners(coords, voxels.shape):
+        term = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c)) * wt
+        out = term if out is None else out + term
+    return out
 
 
 def bilinear_sample(images: torch.Tensor, xys: torch.Tensor) -> torch.Tensor:
@@ -94,9 +95,15 @@ def bilinear_sample(images: torch.Tensor, xys: torch.Tensor) -> torch.Tensor:
 
 def trilinear_resample_vox_grad(coords: torch.Tensor, g: torch.Tensor,
                                 vox_shape) -> torch.Tensor:
-    """d(Σ g·resample(V, coords))/dV: the cotangent scattered to the eight
-    corners with the same weights. The resample is linear in V, so the
-    gradient taken at V = 0 is exact."""
-    zeros = torch.zeros(vox_shape, dtype=g.dtype, device=g.device)
-    _, vjp = torch.func.vjp(lambda v: trilinear_resample(v, coords), zeros)
-    return vjp(g)[0]
+    """d(Σ g·resample(V, coords))/dV: the cotangent times each corner's
+    weight, scattered to the corners' voxels, written out as autograd
+    computes it (the corners' parts summed last corner first), so it equals
+    autograd of ``trilinear_resample`` bit for bit without calling
+    autograd."""
+    b, d, h, w, c = vox_shape
+    out = None
+    for idx, wt in reversed(_corners(coords, vox_shape)):
+        part = g.new_zeros((b, d * h * w, c)).scatter_add_(
+            1, idx[..., None].expand(-1, -1, c), g * wt)
+        out = part if out is None else out + part
+    return out.reshape(tuple(vox_shape))

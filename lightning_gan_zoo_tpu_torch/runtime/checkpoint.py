@@ -14,15 +14,24 @@ FID). Its contents are tensors, dicts, lists and numbers, so
     resume from.
   * Retention is save-then-delete: older checkpoints are removed only after
     the new one is in place, and never one of a newer epoch.
-  * Saves are synchronous. A save or a restore that fails raises.
+  * ``async_save`` (``save_ckpts_async``): ``save_best`` copies the payload
+    to CPU tensors (a synchronising copy off the card) and returns; the
+    ``torch.save`` and the rename finish on a background thread. The next
+    save, or ``finalize()``, waits for it, then writes the deferred
+    ``train_meta.json`` and only then deletes the superseded checkpoint.
+    Until then the new directory has no meta, so ``find_ckpt`` ranks it
+    last.
+  * A save or a restore that fails raises; a failed background save raises
+    at the next wait.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,10 +40,28 @@ STATE_FILE = "state.pt"
 META_FILE = "train_meta.json"
 
 
+def _to_cpu(tree):
+    """A copy of a payload with every tensor copied to the CPU (for a card
+    tensor, a copy the host waits for)."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str | Path, save_ckpts: bool = True):
+    def __init__(self, ckpt_dir: str | Path, save_ckpts: bool = True,
+                 async_save: bool = False):
         self.dir = Path(ckpt_dir)
         self.save_ckpts = bool(save_ckpts)
+        self.async_save = bool(async_save)
+        self._executor: Optional[ThreadPoolExecutor] = None
+        self._pending: Optional[Future] = None
+        self._pending_meta: Optional[Tuple[Path, dict]] = None
+        self._pending_cleanup: List[Path] = []
         if self.save_ckpts:
             self.dir.mkdir(parents=True, exist_ok=True)
 
@@ -43,27 +70,67 @@ class CheckpointManager:
                   fid: Optional[float], meta: Optional[dict] = None
                   ) -> Optional[Path]:
         """Keep one checkpoint, named like the reference's
-        model_best-{fid:.2f}. Returns its path (None when saving is off)."""
+        model_best-{fid:.2f}. Returns its path (None when saving is off);
+        with ``async_save`` the files land later (``finalize``)."""
         if not self.save_ckpts:
             return None
+        self._flush_pending()
         tag = (f"model_best-{fid:.2f}" if fid is not None
                else f"model_epoch-{epoch}")
         path = (self.dir / tag).absolute()
         olds = [old.absolute() for old in self.dir.glob("model_*")
                 if old.absolute() != path and STAGING not in old.name
                 and self.ckpt_epoch(old) <= epoch]
-        staging = self.dir / f"{tag}{STAGING}{os.getpid()}"
-        shutil.rmtree(staging, ignore_errors=True)
-        staging.mkdir()
-        torch.save(payload, staging / STATE_FILE)
-        (staging / META_FILE).write_text(json.dumps(
-            {"epoch": epoch, "fid": fid, **(meta or {})}))
-        if path.exists():            # same tag: an identical fid
-            shutil.rmtree(path)
-        staging.rename(path)
+        info = {"epoch": epoch, "fid": fid, **(meta or {})}
+        if self.async_save:
+            snapshot = _to_cpu(payload)
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(
+                    1, thread_name_prefix="ckpt")
+            self._pending = self._executor.submit(self._commit, snapshot,
+                                                  path, None)
+            self._pending_meta = (path, info)
+            self._pending_cleanup = olds
+            return path
+        self._commit(payload, path, info)
         for old in olds:
             shutil.rmtree(old)
         return path
+
+    def _commit(self, payload, path: Path, info: Optional[dict]):
+        """Write ``payload`` (and ``info``, when given) into a staging
+        directory, then rename it to ``path``."""
+        staging = self.dir / f"{path.name}{STAGING}{os.getpid()}"
+        shutil.rmtree(staging, ignore_errors=True)
+        staging.mkdir()
+        torch.save(payload, staging / STATE_FILE)
+        if info is not None:
+            (staging / META_FILE).write_text(json.dumps(info))
+        if path.exists():            # same tag: an identical fid
+            shutil.rmtree(path)
+        staging.rename(path)
+
+    def _flush_pending(self):
+        """Wait for a background save (raising its error), write its
+        deferred meta, then delete the checkpoints it supersedes."""
+        if self._pending is None:
+            return
+        pending, self._pending = self._pending, None
+        pending.result()
+        path, info = self._pending_meta
+        (path / META_FILE).write_text(json.dumps(info))
+        olds, self._pending_cleanup = self._pending_cleanup, []
+        for old in olds:
+            shutil.rmtree(old, ignore_errors=True)
+
+    def finalize(self):
+        """Land any background save (end of training or evaluation)."""
+        try:
+            self._flush_pending()
+        finally:
+            if self._executor is not None:
+                self._executor.shutdown()
+                self._executor = None
 
     # -- restore ------------------------------------------------------------
     @staticmethod
@@ -80,19 +147,24 @@ class CheckpointManager:
                                          p.stat().st_mtime), default=None)
 
     @staticmethod
-    def select_resume(ckpt_dir: Optional[str | Path]) -> Optional[Path]:
+    def select_resume(ckpt_dir: Optional[str | Path],
+                      extra_rescue_dirs: Sequence[str | Path] = ()
+                      ) -> Optional[Path]:
         """The resume source: the checkpoint in ``ckpt_dir`` or the newest
         preemption rescue (a ``ckpts_rescue`` directory beside ``ckpt_dir``
-        or one level up, where the JAX package's runs write them), whichever
-        records the newer epoch; a tie goes to the rescue, written after
-        that epoch's checkpoint. With ``ckpt_dir`` unset nothing is
-        scanned: a fresh run never resumes on its own."""
+        or one level up, where the runs write them, or one of
+        ``extra_rescue_dirs``, the current run's own), whichever records
+        the newer epoch; a tie goes to the rescue, written after that
+        epoch's checkpoint. With ``ckpt_dir`` unset nothing is scanned: a
+        fresh run never resumes on its own."""
         if not ckpt_dir:
             return None
         best = CheckpointManager.find_ckpt(ckpt_dir)
-        found = (CheckpointManager.find_ckpt(Path(ckpt_dir).parents[k]
-                                             / "ckpts_rescue")
-                 for k in (0, 1))
+        dirs = {Path(d).absolute(): None for d in (
+            Path(ckpt_dir).parent / "ckpts_rescue",
+            Path(ckpt_dir).parent.parent / "ckpts_rescue",
+            *extra_rescue_dirs)}
+        found = (CheckpointManager.find_ckpt(d) for d in dirs)
         rescues = [r for r in found if r is not None]
         if not rescues:
             return best

@@ -39,14 +39,30 @@ uncalibrated FID standing in for ``fid`` in their gating; a figure that
 raises NotImplementedError is reported and skipped, and what a figure drew
 is also logged as an image (a GIF's middle frame).
 
-Features of the JAX Trainer that are not ported yet (asynchronous
-checkpoints, the preemption rescue, multi-device axes, profiling, the debug
-switches, nerf.remat) raise NotImplementedError when switched on; none is
-skipped quietly.
+The runtime switches, as the JAX Trainer has them:
+  * the preemption rescue: ``fit`` catches SIGTERM and SIGUSR1, finishes
+    the superstep in flight, saves the state to
+    ``<output_root>/<name>/ckpts_rescue`` (meta ``rescue: true``, the
+    version, ``best_fid``, ``fid_calibrated``; the interrupted epoch counts
+    as done), prints ``[rescue] checkpointed epoch N …``, restores the old
+    handlers and returns; a resume from ``train.ckpt_dir`` also scans the
+    run's own rescue directory;
+  * ``save_ckpts_async``: checkpoints finish on a background thread
+    (runtime/checkpoint.py); ``fit`` and ``evaluate`` land the last one;
+  * ``profile=true``: ``torch.profiler`` over supersteps 2–6, a Chrome
+    trace under ``<run>/trace`` (utils/profiling.py);
+  * ``debug.fast_dev_run``: one epoch, no folding, a break after the first
+    superstep, then one validation;
+  * ``debug.verbose_shape``: before training, a table of G's submodules
+    (depth 2) with their output shapes for 2 samples at the training
+    resolution; a failure is printed and the run goes on.
+Multi-device axes (``num_gpus``, ``num_sp``, ``num_tp`` > 1, ``zero_opt``,
+``fsdp``) are not ported and raise NotImplementedError when switched on.
 """
 from __future__ import annotations
 
 import os
+import signal
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -60,6 +76,7 @@ from ..data.pipeline import EpochLoader
 from ..figures.image_io import make_grid, unnormalise
 from ..figures.types import FigureContext
 from ..utils.logging import ExperimentLogger
+from ..utils.profiling import TraceCapture
 from .checkpoint import CheckpointManager
 from .state import create_train_state
 from .steps import map_batch, microbatch_count, superstep
@@ -68,19 +85,12 @@ from .steps import map_batch, microbatch_count, superstep
 def unported_features(cfg: Config) -> List[str]:
     """The switched-on config features this package cannot run yet."""
     found = []
-    if cfg.get("save_ckpts_async", False):
-        found.append("save_ckpts_async=true (asynchronous checkpoints)")
-    if (cfg.get("nerf") or {}).get("remat", False):
-        found.append("nerf.remat=true")
     for key in ("num_gpus", "num_sp", "num_tp"):
         if int(cfg.get(key, 1) or 1) > 1:
             found.append(f"{key} > 1 (multi-device)")
-    for key in ("zero_opt", "fsdp", "profile"):
+    for key in ("zero_opt", "fsdp"):
         if cfg.get(key, False):
             found.append(f"{key}=true")
-    for key in ("fast_dev_run", "verbose_shape"):
-        if cfg.debug.get(key, False):
-            found.append(f"debug.{key}=true")
     return found
 
 
@@ -132,7 +142,12 @@ class Trainer:
         self.ckpt = CheckpointManager(
             self.logging_dir / "ckpts",
             save_ckpts=bool(cfg.get("save_ckpts", True))
-            and not bool(cfg.get("eval_only", False)))
+            and not bool(cfg.get("eval_only", False)),
+            async_save=bool(cfg.get("save_ckpts_async", False)))
+        self.trace = TraceCapture(self.logging_dir / "trace",
+                                  enabled=bool(cfg.get("profile", False)))
+        self.fast_dev_run = bool(cfg.debug.get("fast_dev_run", False))
+        self._preempted = False
         self.ema_decay = float(cfg.train.get("ema_decay") or 0.0)
         self.task = instantiate(cfg.model.lm, cfg, str(self.logging_dir),
                                 device=self.device)
@@ -200,8 +215,10 @@ class Trainer:
         return bs
 
     def _fold_at(self, dataset_len: int, batch_size: int, accum: int) -> int:
-        """train.fold_steps, clamped so one fold span fits the dataset."""
-        fold = max(1, int(self.cfg.train.get("fold_steps") or 1))
+        """train.fold_steps (1 under fast_dev_run), clamped so one fold span
+        fits the dataset."""
+        fold = 1 if self.fast_dev_run else max(
+            1, int(self.cfg.train.get("fold_steps") or 1))
         span = batch_size * microbatch_count(self.disc_freq, self.gen_freq,
                                              accum)
         return min(fold, max(1, dataset_len // max(span, 1)))
@@ -297,10 +314,19 @@ class Trainer:
         for name, gen in task.generators().items():
             gen.set_state(payload["rng"][name])
 
+    def _rescue_dir(self) -> Path:
+        """The preemption rescue's directory, ``<output_root>/<name>/
+        ckpts_rescue``: shared by every version of the experiment, so a
+        requeued run finds the newest rescue."""
+        return self.logging_dir.parent / "ckpts_rescue"
+
     def resume(self):
-        """Restore from train.ckpt_dir when it holds a checkpoint; the run
-        then starts at the epoch after the saved one."""
-        path = CheckpointManager.select_resume(self.cfg.train.get("ckpt_dir"))
+        """Restore from train.ckpt_dir when it holds a checkpoint (or a
+        newer rescue, the run's own included); the run then starts at the
+        epoch after the saved one."""
+        path = CheckpointManager.select_resume(
+            self.cfg.train.get("ckpt_dir"),
+            extra_rescue_dirs=[self._rescue_dir()])
         if path is None:
             return
         payload, meta = CheckpointManager.restore(path)
@@ -343,8 +369,28 @@ class Trainer:
         return bool(self.metrics_eval.calibrated)
 
     # ------------------------------------------------------------ train
+    def _on_signal(self, signum, frame):
+        print(f"[rescue] caught signal {signum}; will checkpoint and exit at "
+              "the next superstep boundary", flush=True)
+        self._preempted = True
+
     def fit(self):
-        num_epochs = int(self.cfg.train.num_epochs)
+        num_epochs = 1 if self.fast_dev_run else int(self.cfg.train.num_epochs)
+        old_handlers = []
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            try:
+                old_handlers.append((sig, signal.signal(sig, self._on_signal)))
+            except ValueError:          # not the main thread
+                pass
+        try:
+            self._fit(num_epochs)
+        finally:
+            for sig, handler in old_handlers:
+                signal.signal(sig, handler)
+        self.ckpt.finalize()
+        self.trace.close()
+
+    def _fit(self, num_epochs: int):
         loader = self._make_train_loader()
         self.state = create_train_state(
             self.task, loader.steps_per_epoch() * self._active_fold,
@@ -352,6 +398,7 @@ class Trainer:
                                                          num_epochs),
             ema=self.ema_decay > 0.0)
         self.resume()
+        self._print_shapes()
         while self.epoch < num_epochs:
             self._update_epoch_schedules()
             loader = self._make_train_loader()
@@ -371,9 +418,12 @@ class Trainer:
                         map_batch(lambda v: v[f * n_micro:(f + 1) * n_micro],
                                   stack),
                         self.disc_freq, self.gen_freq, accum, self.ema_decay)
+                    self.trace.tick()
                     for k, v in metrics.items():
                         epoch_metrics.setdefault(f"train/{k}", []).append(v)
                 n_steps += 1
+                if self.fast_dev_run or self._preempted:
+                    break
             means = {k: float(torch.stack(v).mean())
                      for k, v in epoch_metrics.items()}
             dt = time.perf_counter() - t_epoch   # after the fetch above
@@ -384,9 +434,70 @@ class Trainer:
             loss_str = " ".join(f"{k.split('/')[-1]}={v:.4f}"
                                 for k, v in means.items())
             print(f"epoch {self.epoch} [{dt:.1f}s] {loss_str}", flush=True)
-            if self.epoch % int(self.cfg.val.get("every_n_epochs", 1)) == 0:
+            if self._preempted:
+                self._save_rescue()
+                return
+            if (self.epoch % int(self.cfg.val.get("every_n_epochs", 1)) == 0
+                    or self.fast_dev_run):
                 self.validate(self.state.step)
             self.epoch += 1
+
+    def _save_rescue(self):
+        """The current state into the rescue directory; the interrupted
+        epoch counts as done (a resume starts at the next one)."""
+        CheckpointManager(self._rescue_dir()).save_best(
+            self.checkpoint_payload(), epoch=self.epoch, fid=None,
+            meta={"rescue": True, "version": self.version,
+                  "best_fid": (self.best_fid
+                               if self.best_fid != float("inf") else None),
+                  "fid_calibrated": self._fid_calibrated()})
+        print(f"[rescue] checkpointed epoch {self.epoch} (step "
+              f"{self.state.step}) to {self._rescue_dir()}; exiting",
+              flush=True)
+
+    def _print_shapes(self):
+        """debug.verbose_shape: G's submodules to depth 2 with their output
+        shapes, for 2 samples at the training resolution (forward hooks on
+        one eval-mode generate); a failure is printed and the run goes
+        on."""
+        if not bool(self.cfg.debug.get("verbose_shape", False)):
+            return
+        modules = [(name or "generator", m) for name, m
+                   in self.task.generator.named_modules()
+                   if name.count(".") < 2]
+        seen: Dict[str, str] = {}
+
+        def shapes(out):
+            if torch.is_tensor(out):
+                return str(tuple(out.shape))
+            if isinstance(out, (tuple, list)):
+                return ", ".join(shapes(o) for o in out)
+            return type(out).__name__
+
+        def hook(name):   # a module called twice keeps its first output
+            def record(module, args, out):
+                seen.setdefault(name, shapes(out))
+            return record
+
+        handles = [m.register_forward_hook(hook(name))
+                   for name, m in modules]
+        try:
+            kw = {}
+            if hasattr(self.task, "training_resolution"):
+                kw["sample_res"] = self.task.training_resolution
+            z = self.task.sample_z(2, generator=self._generator(11))
+            self.task.generate(z, generator=self._generator(12), **kw)
+            width = max(len(name) for name, _ in modules)
+            print("[debug] generator output shapes (2 samples):")
+            for name, m in modules:
+                print(f"  {name:<{width}}  {type(m).__name__:<24} "
+                      f"{seen.get(name, '(not called)')}")
+        except Exception as e:  # noqa: BLE001 — a debug print never ends
+            # the run, as in the JAX Trainer
+            print(f"[debug] verbose_shape failed: {e}")
+        finally:
+            for h in handles:
+                h.remove()
 
     def evaluate(self) -> Dict[str, float]:
         """``eval_only=true``: restore train.ckpt_dir (the same resume scan
@@ -396,10 +507,13 @@ class Trainer:
         self.state = create_train_state(self.task, steps_per_epoch=1,
                                         ema=self.ema_decay > 0.0)
         self.resume()
+        self._print_shapes()
         if self.state.step == 0:
             print("[eval] no checkpoint restored (train.ckpt_dir unset or "
                   "empty): evaluating the random initialisation")
-        return self.validate(self.state.step)
+        metrics = self.validate(self.state.step)
+        self.ckpt.finalize()
+        return metrics
 
     def _draw_figures(self, params, metrics: Dict[str, float],
                       global_step: int):

@@ -135,6 +135,12 @@ class HOLOGAN(GANTask):
         from ..models.hologan import sample_view
         return sample_view(generator, n, self.cfg.generator.view_args)
 
+    def view_from_uniforms(self, u: torch.Tensor) -> torch.Tensor:
+        """Views from (n, 6) uniforms in [0, 1), over sample_view's ranges
+        (the serving export's seeded draw)."""
+        from ..models.hologan import view_from_uniforms
+        return view_from_uniforms(u, self.cfg.generator.view_args)
+
     def generate(self, z, generator=None, params=None, view_in=None):
         """Eval-mode images, NCHW; the views are ``view_in``, else drawn
         from ``generator`` (default: the task's view stream)."""

@@ -60,6 +60,13 @@ class PIGAN(GANTask):
         return sample_pigan_view(generator, n, va.azimuth_low,
                                  va.azimuth_high)
 
+    def view_from_uniforms(self, u: torch.Tensor) -> torch.Tensor:
+        """Views from (n, ≥1) uniforms in [0, 1), over sample_view's range
+        (the serving export's seeded draw)."""
+        from ..models.pigan import pigan_view_from_uniforms
+        va = self.cfg.generator.view_args
+        return pigan_view_from_uniforms(u, va.azimuth_low, va.azimuth_high)
+
     # -- extra state ---------------------------------------------------------
     def initial_extra(self):
         return {"alpha": torch.zeros((), device=self.device),
@@ -148,6 +155,9 @@ class ANIGAN(PIGAN):
     supervision."""
 
     _DEFORMER = "nerf_renderer.rad_field.deformer."
+    #: without shape analyses the field reads noise in place of the
+    #: deformed points (a serving program draws it from its seed)
+    draws_deformation_noise = True
 
     def deformation_parameters(self, params, shape_analysis):
         """The deformer's parameters for a shape-analysis batch, computed

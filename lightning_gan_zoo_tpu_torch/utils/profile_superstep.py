@@ -34,9 +34,11 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
+
+from .profiling import union_us
 
 WARMUP, TRACED, TOP = 2, 2, 12   # supersteps; kernels listed by name
 KINDS = (("trunk forward", ("trunk_fwd",)),
@@ -69,16 +71,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _union_us(intervals: List[Tuple[float, float]]) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
-
-
 def device_time(prof) -> Tuple[Dict[str, float], Dict[str, float], float,
                                 int]:
     """(ms by kind, ms by kernel name, busy ms as the union of the kernels'
@@ -97,7 +89,7 @@ def device_time(prof) -> Tuple[Dict[str, float], Dict[str, float], float,
         by_kind[kind_of(ev.name)] = by_kind.get(kind_of(ev.name), 0.0) + ms
         by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
         spans.append((start, end))
-    return by_kind, by_name, _union_us(spans) / 1e3, len(spans)
+    return by_kind, by_name, union_us(spans) / 1e3, len(spans)
 
 
 def host_time(prof) -> Dict[str, float]:

@@ -13,8 +13,10 @@ and exits. ``--device`` (default ``cuda``) names the torch device; without a
 CUDA device ``--device cuda`` fails, it never falls back to the CPU.
 ``eval_only=true train.ckpt_dir=<run>/ckpts`` evaluates a saved run once
 (FID/KID with ``calc_fid``) and prints ``eval k=v …``; it trains and saves
-nothing. Features the port has not reached yet fail with a "not yet
-ported" error.
+nothing. SIGTERM or SIGUSR1 during training saves the state to
+``<output_root>/<name>/ckpts_rescue`` at the next superstep boundary and
+exits 0. Features the port has not reached yet (the multi-device axes)
+fail with a "not yet ported" error.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """The port's dataset readers against the JAX package's, on files the test
 writes: MNIST idx files (plain and gzip) and a PNG image folder. The arrays
-must be equal (both decode with PIL and normalise in float32)."""
+must be equal (both decode with PIL, the native decoder switched off in
+both, and normalise in float32)."""
 import gzip
 import struct
 
@@ -14,6 +15,7 @@ from lightning_gan_zoo_tpu.data import native_loader
 from lightning_gan_zoo_tpu_torch.config import compose
 from lightning_gan_zoo_tpu_torch.config.registry import instantiate
 from lightning_gan_zoo_tpu_torch.data import datasets
+from lightning_gan_zoo_tpu_torch.data import native_loader as port_native_loader
 
 
 def write_idx(path, array, gz=False):
@@ -73,6 +75,7 @@ def test_image_folder_matches_jax_pil_path(tmp_path, n_channels,
                                            monkeypatch):
     write_folder(tmp_path)
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(port_native_loader, "library", lambda: None)
     kw = dict(root=str(tmp_path), img_size=16, n_channels=n_channels,
               data_mean=0.5, data_std=0.5)
     got, want = datasets.ImageFolder(**kw), jax_datasets.ImageFolder(**kw)
