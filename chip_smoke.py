@@ -121,12 +121,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      debug.verbose_shape: one superstep, one validation, the shape table;
  18. the native image decoder on 512-image JPEG folders at 64 and 32 px
      written under build/: the port's ImageFolder takes the native route
-     and returns the library's pixels; images/s native and PIL.
+     and returns the library's pixels; images/s native and PIL;
+ 19. data parallelism (parallel/dist.py): (a) run_network_torch.main() as
+     rank 0 of a one-rank NCCL group (torchrun's RANK=0 WORLD_SIZE=1)
+     trains HoloGAN at full width for 2 supersteps under deterministic
+     cuDNN; every parameter and buffer must equal the same run with no
+     group bit for bit, and the trilinear launches the one-device count;
+     (b) two gloo ranks spawned by parallel.dist.launch, both on cuda:0,
+     each run one superstep on their halves of one global batch for
+     HoloGAN (full width, precision 32), π-GAN (machine=small, 16 px, 128
+     = 2 × 64) and dc_gan (64 px, batch 128, features 64: BatchNorm over
+     the global batch); the ranks must end bit-identical, the metrics lie
+     within DP_TOL of one superstep on the whole batch, and each rank's
+     launches equal the one-device count; printed: seconds per superstep,
+     the bytes each rank all-reduces per superstep (counted, and the
+     gradients' from the parameter counts) and the gradient all-reduce's
+     ms (CUDA events).
 Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
-Each of phases 14–18 prints its seconds. The last lines are the card's
+Each of phases 14–19 prints its seconds. The last lines are the card's
 name and power limit, a JSON line describing
 each kernel (launches on the main paths and per superstep, error, time
 beside its plain version's and the library call's, and its bound from this
@@ -1394,20 +1409,26 @@ def walk_tensors(tree):
             yield from walk_tensors(v)
 
 
-def remat_phase():
-    """One π-GAN superstep at 64 px (batch 8, ×4 accumulation) with and
-    without nerf.remat, from the same seed, under deterministic cuDNN (the
-    default cuDNN algorithms make D's weight gradients differ between two
-    runs of the same superstep, remat or not)."""
+@contextlib.contextmanager
+def deterministic_cudnn():
     import torch
     flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
         True, False)
     try:
-        return _remat_runs()
+        yield
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
+
+
+def remat_phase():
+    """One π-GAN superstep at 64 px (batch 8, ×4 accumulation) with and
+    without nerf.remat, from the same seed, under deterministic cuDNN (the
+    default cuDNN algorithms make D's weight gradients differ between two
+    runs of the same superstep, remat or not)."""
+    with deterministic_cudnn():
+        return _remat_runs()
 
 
 def _remat_runs():
@@ -1504,6 +1525,214 @@ def fast_dev_run_phase():
     print(f"fast_dev_run: one superstep and one validation in {wall:.1f} s, "
           f"launches {launches}; verbose_shape printed {len(table)} rows")
     return launches
+
+
+#: phase 19 (b): one superstep of each family at its config's full width,
+#: from its seed, on two gloo ranks that share the card, each holding half
+#: of one global batch, against one superstep on the whole batch
+DP_FAMILIES = {
+    "hologan": ["+expt=hologan", "dataset=synthetic", "precision=32",
+                "~figures"],
+    "pigan": ["+expt=pigan", "machine=small", "dataset=synthetic",
+              "~figures"],
+    "dc_gan": ["+expt=dc_gan", "dataset=synthetic", "~figures"],
+}
+#: (rtol, atol) of each family's metrics against one device: the JAX
+#: package's own in float32 (tests/test_sharding.py); under the bf16 policy
+#: (π-GAN's trunk, dc_gan's convolutions) the batch size changes where
+#: cuDNN and the kernels round, so about 2.5 bf16 steps at 1.0
+DP_TOL = {"hologan": (2e-3, 1e-5), "pigan": (1e-2, 1e-3),
+          "dc_gan": (1e-2, 1e-3)}
+#: supersteps timed after the checked one, on each rank
+DP_TIMED_STEPS = 3
+DP_OUT = REPO / "build" / "chip_smoke_output" / "data_parallel"
+
+
+def dp_superstep(name: str, device, sent=None) -> dict:
+    """One superstep of DP_FAMILIES[name] from its seed on this process's
+    rows of the global batch (all of them without a group): its metrics,
+    G's and D's state on the CPU, the kernel launches and the bytes
+    all-reduced (``sent``, a one-element counter); then DP_TIMED_STEPS more
+    supersteps on the host clock, and the gradient all-reduce alone by CUDA
+    events."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.config import compose
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    from lightning_gan_zoo_tpu_torch.runtime.state import create_train_state
+    from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
+    cfg = compose(REPO / "conf", DP_FAMILIES[name])
+    task = instantiate(cfg.model.lm, cfg, str(DP_OUT), device=device)
+    df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
+    b = (int(cfg.variable_batch_size.batch_sizes[0])
+         if "variable_batch_size" in cfg else int(cfg.train.batch_size))
+    s, c = int(cfg.train.img_size), int(cfg.train.channels_img)
+    images = torch.rand(df + gf, b, c, s, s, device=device,
+                        generator=torch.Generator(device).manual_seed(11)
+                        ) * 2 - 1
+    w, r = dist.world_size(), dist.rank()
+    batches = {"image": images[:, r * b // w:(r + 1) * b // w]}
+    state = create_train_state(task, steps_per_epoch=4)
+    sent = sent if sent is not None else [0]
+    torch.cuda.synchronize(device)
+    reset_counts()
+    sent0 = sent[0]
+    metrics = superstep(task, state, batches, df, gf)
+    torch.cuda.synchronize(device)
+    out = {"launches": read_counts(), "sent": sent[0] - sent0,
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "state": {f"{net}.{k}": v.detach().cpu().clone()
+                     for net, m in (("G", task.generator),
+                                    ("D", task.discriminator))
+                     for k, v in m.state_dict().items()},
+           "rows": batches["image"].shape[1], "global_batch": b}
+    step_s = []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        superstep(task, state, batches, df, gf)
+        torch.cuda.synchronize(device)
+        step_s.append(time.perf_counter() - t0)
+    out["step_s"] = step_s
+    grads, ar_ms = 0, 0.0
+    for net, freq in ((task.discriminator, df), (task.generator, gf)):
+        n = sum(p.numel() for p in net.parameters())
+        grads += freq * 4 * n
+        times = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            dist.average_grads(net.parameters())
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        ar_ms += freq * sorted(times)[len(times) // 2]
+    out["grad_bytes"] = grads
+    out["grad_all_reduce_ms"] = ar_ms
+    del task, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(device, out_dir: str) -> int:
+    """Phase 19 (b), one rank: every DP_FAMILIES superstep, counting the
+    bytes that torch.distributed.all_reduce sends (gradients, metrics and
+    BatchNorm statistics); the results into out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as tdist
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sent = [0]
+    all_reduce = tdist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        sent[0] += t.numel() * t.element_size()
+        return all_reduce(t, *args, **kwargs)
+
+    tdist.all_reduce = counted
+    results = {name: dp_superstep(name, device, sent)
+               for name in DP_FAMILIES}
+    torch.save(results, Path(out_dir) / f"rank{dist.rank()}.pt")
+    return 0
+
+
+def data_parallel_phase():
+    """(a) HoloGAN at full width for 2 supersteps through
+    run_network_torch.main() as rank 0 of a one-rank NCCL group (torchrun's
+    variables), against the same run with no group: bit for bit, with the
+    one-device launch counts; (b) DP_FAMILIES on two gloo ranks sharing the
+    card: ranks bit-identical, metrics within DP_TOL of one device, each
+    rank's launches the one-device count."""
+    import os
+    import torch
+    from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    argv = ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
+            "save_ckpts=False", "~figures", "train.num_epochs=1",
+            "dataset.n=192"]                   # 2 supersteps of 32 × 3
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(dist.free_port())}
+    with deterministic_cudnn():
+        ref, ref_launches, ref_wall, _ = run_main(argv, kt, "dp_no_group")
+        os.environ.update(env)
+        try:
+            trainer, launches, wall, printed = run_main(argv, kt, "dp_nccl")
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+    check("[dist] rank 0 of 1, backend nccl" in printed,
+          "the one-rank run did not join a NCCL group")
+    check(not dist.is_initialized(), "the NCCL group was left open")
+    want = {"fwd": 2 * 3 + 1, "bwd": 2 * 2}   # + the validation's Fake grid
+    check(launches == ref_launches == want,
+          f"NCCL launches {launches}, no group {ref_launches}, want {want}")
+    differ = [f"{net}.{k}" for net in ("generator", "discriminator")
+              for k, v in getattr(trainer.task, net).state_dict().items()
+              if not torch.equal(v, getattr(ref.task, net).state_dict()[k])]
+    check(not differ, f"one-rank NCCL differs from no group: {differ[:5]}")
+    print(f"data parallel (a): HoloGAN at full width, 2 supersteps, one-rank "
+          f"NCCL group bit-identical to no group "
+          f"({sum(1 for _ in trainer.task.generator.state_dict())} + "
+          f"{sum(1 for _ in trainer.task.discriminator.state_dict())} "
+          f"tensors), trilinear launches {launches}; {wall:.1f} s vs "
+          f"{ref_wall:.1f} s with no group (host clock, Trainer set-up "
+          f"included; {card_line()})")
+    del trainer, ref
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    DP_OUT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dist.launch(dp_rank, (str(DP_OUT),), ["cuda:0", "cuda:0"],
+                backend="gloo")
+    spawn_wall = time.perf_counter() - t0
+    ranks = [torch.load(DP_OUT / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    paths = {}
+    for name in DP_FAMILIES:
+        one = dp_superstep(name, "cuda:0")
+        r0, r1 = ranks[0][name], ranks[1][name]
+        differ = [k for k, v in r0["state"].items()
+                  if not torch.equal(v, r1["state"][k])]
+        check(not differ, f"{name}: the ranks differ after the superstep: "
+              f"{differ[:5]}")
+        check(r0["metrics"] == r1["metrics"],
+              f"{name}: the ranks' metrics differ")
+        rtol, atol = DP_TOL[name]
+        worst = {}
+        for k, v in one["metrics"].items():
+            got = r0["metrics"][k]
+            worst[k] = abs(got - v)
+            check(math.isfinite(got) and abs(got - v) <= atol + rtol * abs(v),
+                  f"{name}: {k} {got} on two ranks, {v} on one device")
+        check(set(r0["metrics"]) == set(one["metrics"]),
+              f"{name}: metric keys {sorted(r0['metrics'])}")
+        for r in (r0, r1):
+            check(r["launches"] == one["launches"],
+                  f"{name}: a rank launched {r['launches']}, one device "
+                  f"{one['launches']}")
+        check(r0["rows"] * 2 == r0["global_batch"] == one["rows"],
+              f"{name}: rows {r0['rows']} of {r0['global_batch']}")
+        paths[name] = r0["launches"]
+        steps = sorted(r0["step_s"] + r1["step_s"])
+        print(f"data parallel (b) {name}: global batch {r0['global_batch']}"
+              f" ({r0['rows']} per rank), ranks bit-identical "
+              f"({len(r0['state'])} tensors), metrics {r0['metrics']} vs "
+              f"one device {one['metrics']} (|diff| {worst}, rtol {rtol} "
+              f"atol {atol}); per-rank launches {r0['launches']}; "
+              f"{r0['sent']} bytes all-reduced per rank in the superstep "
+              f"(gradients from the parameter counts {r0['grad_bytes']}); "
+              f"gradient all-reduce {r0['grad_all_reduce_ms']:.2f} ms per "
+              f"superstep (CUDA events, gloo through the host); "
+              f"{steps[len(steps) // 2]:.3f} s per superstep on two ranks "
+              f"sharing the card vs {sorted(one['step_s'])[1]:.3f} s on one "
+              f"(host clock, median of {DP_TIMED_STEPS} per rank)")
+    print(f"data parallel (b): two gloo ranks on cuda:0, {spawn_wall:.1f} s "
+          f"from spawn to exit; {card_line()}")
+    return {"hologan_nccl_1rank": launches,
+            "hologan_gloo_2rank": paths["hologan"]["trilinear"],
+            "pigan_gloo_2rank": paths["pigan"]["siren_trunk"]}
 
 
 def native_decoder_phase():
@@ -1606,7 +1835,8 @@ def main() -> int:
                         ("async_profile", async_profile_phase),
                         ("remat", remat_phase),
                         ("fast_dev_run", fast_dev_run_phase),
-                        ("native_decoder", native_decoder_phase)):
+                        ("native_decoder", native_decoder_phase),
+                        ("data_parallel", data_parallel_phase)):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         extras[name] = phase()
@@ -1617,11 +1847,17 @@ def main() -> int:
                   "hologan_serving": extras["serving"]["trilinear"],
                   "hologan_rescue_resume": extras["rescue"],
                   "hologan_async_profile": extras["async_profile"],
-                  "hologan_fast_dev_run": extras["fast_dev_run"]}
+                  "hologan_fast_dev_run": extras["fast_dev_run"],
+                  "hologan_nccl_1rank":
+                      extras["data_parallel"]["hologan_nccl_1rank"],
+                  "hologan_gloo_2rank_per_rank":
+                      extras["data_parallel"]["hologan_gloo_2rank"]}
     trunk_paths = {"pigan": trunk_launches, "anigan": anigan_launches,
                    "anigan_displacement": disp_launches,
                    "pigan_serving": extras["serving"]["siren_trunk"],
-                   "pigan_remat_supersteps": extras["remat"]}
+                   "pigan_remat_supersteps": extras["remat"],
+                   "pigan_gloo_2rank_per_rank":
+                       extras["data_parallel"]["pigan_gloo_2rank"]}
     kernels = [
         {"name": f"trilinear_{k}", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k],

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.losses import interpolate_sphere
+from ..parallel.dist import is_main_process
 from .image_io import make_grid, save_gif, save_png, unnormalise
 
 #: the salt of the generator a ``generate`` call draws its views from
@@ -86,7 +87,8 @@ class Figure:
         self.save_dir = Path(parent_dir) / figure_details.get("dir", "figures")
         self.filename = (figure_details.get("filename")
                          or f"{type(self).__name__}.{self.ext}")
-        self.save_dir.mkdir(parents=True, exist_ok=True)
+        if is_main_process():
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self.current_best_metric = float("inf")
         self.save_all = bool(figure_details.get("save_all", False))
@@ -111,6 +113,10 @@ class Figure:
         save_png(path, artefact)
 
     def draw_and_save(self, ctx: FigureContext):
+        # rank 0 draws and writes; a draw runs no collective, so the other
+        # ranks skip it
+        if not is_main_process():
+            return
         artefact = self.draw(ctx)
         self._write(artefact, self._out_path(ctx))
         # kept so the Trainer can log what was drawn this validation

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..ops import grid_sample
 from ..ops.cuda import trilinear as cuda_trilinear
+from ..parallel.dist import draw_rows
 from .layers import SpectralNormConv, ZMapping, adain, conv_init, linear
 
 #: HoloGAN's AdaIN epsilon (the JAX generator's _adain_relu), not 1e-5
@@ -264,7 +265,8 @@ class Generator(nn.Module):
             if generator is None:
                 raise ValueError("Generator needs view_in or a generator "
                                  "to sample views from")
-            view_in = sample_view(generator, b, self.view_args)
+            view_in = draw_rows(
+                lambda m: sample_view(generator, m, self.view_args), b)
         x = self.const.expand(b, -1, -1, -1, -1)
         s0, b0 = self.zmap(z)
         h = F.relu(adain(x, s0, b0, ADAIN_EPS))

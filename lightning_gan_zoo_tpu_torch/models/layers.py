@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
+
 
 def conv_init(weight: torch.Tensor, generator: torch.Generator):
     """DCGAN-style init, normal(0, 0.02), as the JAX package's ``conv_init``
@@ -158,7 +160,10 @@ class BatchNorm2d(nn.Module):
       * ``update_stats = False`` (see ``frozen_stats``) normalises with the
         batch statistics without touching the buffers, as a flax apply with
         ``mutable=False``;
-      * eval mode normalises with the running statistics.
+      * eval mode normalises with the running statistics;
+      * on more than one rank the training-mode statistics are those of the
+        global batch (the JAX package's sharded BatchNorm), in frozen_stats
+        too; see ``_global_batch_norm``.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -175,6 +180,8 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if dist.world_size() > 1:
+            return self._global_batch_norm(x)
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
@@ -184,12 +191,38 @@ class BatchNorm2d(nn.Module):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
+    def _global_batch_norm(self, x):
+        """Training-mode BatchNorm over the global batch, in float32: the
+        mean from the ranks' summed channel sums, then the biased variance
+        from the ranks' summed squared deviations from that mean. Two small
+        all-reduces where one of the sum and the sum of squares would do,
+        because E[x²] − mean² cancels where a channel's mean is large
+        against its spread, and the two-pass form is what the one-device
+        path computes. The sums are ``dist.all_reduce_sum``, so first- and
+        second-order gradients (the penalties' autograd.grad with
+        create_graph) cross the ranks. Every rank has the same rows, so
+        the count is the local one times the world size."""
+        x32 = x.float()
+        n = x32.numel() // x32.shape[1] * dist.world_size()
+        mean = dist.all_reduce_sum(x32.sum(dim=(0, 2, 3))) / n
+        centred = x32 - mean[:, None, None]
+        var = dist.all_reduce_sum(centred.square().sum(dim=(0, 2, 3))) / n
+        if self.update_stats:
+            with torch.no_grad():
+                torch._foreach_lerp_([self.running_mean, self.running_var],
+                                     [mean.detach(), var.detach()],
+                                     self.momentum)
+        y = centred * torch.rsqrt(var + self.eps)[:, None, None]
+        return (y * self.weight[:, None, None]
+                + self.bias[:, None, None]).to(x.dtype)
+
 
 @contextlib.contextmanager
 def frozen_stats(module: nn.Module):
-    """Within the block, ``module``'s BatchNorms use batch statistics but
-    leave their running buffers alone (the JAX package's penalty passes
-    apply D with ``mutable=False``)."""
+    """Within the block, ``module``'s BatchNorms use batch statistics (the
+    global batch's on more than one rank) but leave their running buffers
+    alone (the JAX package's penalty passes apply D with
+    ``mutable=False``)."""
     norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
     for m in norms:
         m.update_stats = False

@@ -23,6 +23,7 @@ from torch import nn
 from ..nerf.cameras import OrthographicCameras, look_at_view_transform
 from ..nerf.renderer import RadianceFieldRenderer
 from ..nerf.sampling import sample_full_xys
+from ..parallel.dist import draw_rows
 from .layers import CoordConv, avg_pool2
 
 #: the progressive discriminator's widest block
@@ -129,9 +130,9 @@ class Generator(nn.Module):
                 if view_generator is None:
                     raise ValueError("Generator needs cameras, view_in or a "
                                      "generator to sample views from")
-                view_in = sample_pigan_view(view_generator, b,
-                                            self.view_args["azimuth_low"],
-                                            self.view_args["azimuth_high"])
+                view_in = draw_rows(lambda m: sample_pigan_view(
+                    view_generator, m, self.view_args["azimuth_low"],
+                    self.view_args["azimuth_high"]), b)
             cameras = self.pose_to_cameras(view_in)
         field_kw = {k: v for k, v in deformation.items() if v is not None}
         if self.deformer is not None:

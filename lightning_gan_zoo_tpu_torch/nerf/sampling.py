@@ -3,7 +3,8 @@ sampling.py).
 
 Every random function takes an explicit ``torch.Generator`` or, in its
 place, the tensor of uniform draws itself, so that a test can feed it the
-draws the JAX package made.
+draws the JAX package made. The batch axis leads every draw
+(``parallel.dist.draw_rows`` slices it).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Optional
 import torch
 
 from ..ops.grid_sample import bilinear_sample
+from ..parallel.dist import draw_rows
 
 
 def _uniform(shape, generator: Optional[torch.Generator],
@@ -23,8 +25,9 @@ def _uniform(shape, generator: Optional[torch.Generator],
         return u.to(device=like.device, dtype=like.dtype)
     if generator is None:
         raise ValueError("pass a torch.Generator or the uniform draws")
-    return torch.rand(shape, generator=generator, device=like.device,
-                      dtype=like.dtype)
+    return draw_rows(lambda m: torch.rand(
+        (m, *shape[1:]), generator=generator, device=like.device,
+        dtype=like.dtype), shape[0])
 
 
 def sample_full_xys(batch_size: int, img_size: int, device=None

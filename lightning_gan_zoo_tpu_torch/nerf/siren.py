@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.cuda import siren_trunk as cuda_trunk
 from ..ops.fast_math import fast_sin
+from ..parallel.dist import draw_rows
 
 BF16 = torch.bfloat16
 
@@ -256,9 +257,9 @@ class SirenSingleShape(nn.Module):
         elif deform_noise is not None:
             deformed = deform_noise((b, n * p, self.input_channels))
         else:
-            deformed = torch.rand((b, n * p, self.input_channels),
-                                  generator=deform_generator,
-                                  device=points.device)
+            deformed = draw_rows(lambda m: torch.rand(
+                (m, n * p, self.input_channels), generator=deform_generator,
+                device=points.device), b)
         dirs = dirs[:, :, None, :].expand(b, n, p, 3).reshape(b, n * p, 3)
         x = self.siren(deformed, gammas, betas)
         x = torch.cat([x, dirs.to(x.dtype)], dim=-1)

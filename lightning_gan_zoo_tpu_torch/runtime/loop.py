@@ -1,5 +1,5 @@
 """The training loop (counterpart of lightning_gan_zoo_tpu/runtime/loop.py),
-for one device.
+on one device or as one rank of a data-parallel group.
 
 Builds the task on the device it is given, streams shuffled epochs of
 stacked superstep batches from the EpochLoader, runs the superstep, logs the
@@ -56,8 +56,18 @@ The runtime switches, as the JAX Trainer has them:
   * ``debug.verbose_shape``: before training, a table of G's submodules
     (depth 2) with their output shapes for 2 samples at the training
     resolution; a failure is printed and the run goes on.
-Multi-device axes (``num_gpus``, ``num_sp``, ``num_tp`` > 1, ``zero_opt``,
-``fsdp``) are not ported and raise NotImplementedError when switched on.
+Data parallelism (``num_gpus`` > 1; parallel/dist.py): the Trainer runs on
+every rank of the group that run_network_torch.py or torchrun made, with
+the JAX Trainer's multi-process contract. ``train.batch_size`` is global and
+each rank's EpochLoader holds its stripe of it; the supersteps per epoch
+come from the per-rank length; the run version is rank 0's; a caught signal
+is agreed between the ranks every ``PREEMPT_SYNC_EVERY`` loader steps and at
+the epoch's end, and the rescue is saved once; rank 0 alone validates (the
+grids, FID/KID, the figures) and writes logs, traces and checkpoints, and
+its FID/KID are broadcast so that every rank makes the same best-FID
+decision. The other multi-device axes (``num_sp``, ``num_tp`` > 1,
+``zero_opt``, ``fsdp``) are not ported and raise NotImplementedError when
+switched on.
 """
 from __future__ import annotations
 
@@ -75,6 +85,7 @@ from ..config.registry import instantiate
 from ..data.pipeline import EpochLoader
 from ..figures.image_io import make_grid, unnormalise
 from ..figures.types import FigureContext
+from ..parallel import dist
 from ..utils.logging import ExperimentLogger
 from ..utils.profiling import TraceCapture
 from .checkpoint import CheckpointManager
@@ -82,20 +93,31 @@ from .state import create_train_state
 from .steps import map_batch, microbatch_count, superstep
 
 
-def unported_features(cfg: Config) -> List[str]:
-    """The switched-on config features this package cannot run yet."""
+#: on more than one rank, the ranks agree on a caught signal every this
+#: many loader steps and at the epoch's end: each agreement is a collective
+#: that waits for the slowest rank (the JAX Trainer's _PREEMPT_SYNC_EVERY)
+PREEMPT_SYNC_EVERY = 8
+
+
+def check_ported(cfg: Config):
+    """Raise NotImplementedError naming the switched-on config features
+    this package cannot run yet."""
     found = []
-    for key in ("num_gpus", "num_sp", "num_tp"):
+    for key in ("num_sp", "num_tp"):
         if int(cfg.get(key, 1) or 1) > 1:
             found.append(f"{key} > 1 (multi-device)")
     for key in ("zero_opt", "fsdp"):
         if cfg.get(key, False):
             found.append(f"{key}=true")
-    return found
+    if found:
+        raise NotImplementedError(
+            "not yet ported to lightning_gan_zoo_tpu_torch: "
+            + "; ".join(found))
 
 
 def _resolve_version(cfg: Config, output_root: Path) -> str:
-    """cfg.version, a cluster job id, else the next free version_N."""
+    """cfg.version, a cluster job id, else the next free version_N (rank
+    0's: a rank scanning after rank 0 made version_N would pick N+1)."""
     v = cfg.get("version")
     if v is not None:
         return str(v)
@@ -105,7 +127,7 @@ def _resolve_version(cfg: Config, output_root: Path) -> str:
     base = output_root / cfg.name
     existing = [int(p.name.split("_")[-1]) for p in base.glob("version_*")
                 if p.name.split("_")[-1].isdigit()] if base.is_dir() else []
-    return f"version_{max(existing) + 1 if existing else 0}"
+    return f"version_{dist.broadcast_int(max(existing) + 1 if existing else 0)}"
 
 
 def _dataset_kwargs(cfg: Config) -> dict:
@@ -117,11 +139,7 @@ def _dataset_kwargs(cfg: Config) -> dict:
 
 class Trainer:
     def __init__(self, cfg: Config, device):
-        unported = unported_features(cfg)
-        if unported:
-            raise NotImplementedError(
-                "not yet ported to lightning_gan_zoo_tpu_torch: "
-                + "; ".join(unported))
+        check_ported(cfg)
         self.device = torch.device(device)
         # Explicit, since cuDNN defaults to TF32 for float32 convolutions.
         # Under precision 16 the convolutions and matmuls run in bf16
@@ -132,20 +150,22 @@ class Trainer:
 
         self.cfg = cfg
         self.seed = int(cfg.get("seed", 42))
+        self.is_main = dist.is_main_process()
         out_root = Path(cfg.get("output_root", "output"))
         self.version = _resolve_version(cfg, out_root)
         self.logging_dir = out_root / cfg.name / self.version
-        self.logger = ExperimentLogger(self.logging_dir)
+        self.logger = ExperimentLogger(self.logging_dir, enabled=self.is_main)
         # new checkpoints land in this run's directory; train.ckpt_dir is
         # only scanned for the resume; an evaluation (eval_only) writes
         # none and makes no checkpoint directory
         self.ckpt = CheckpointManager(
             self.logging_dir / "ckpts",
             save_ckpts=bool(cfg.get("save_ckpts", True))
-            and not bool(cfg.get("eval_only", False)),
+            and not bool(cfg.get("eval_only", False)) and self.is_main,
             async_save=bool(cfg.get("save_ckpts_async", False)))
         self.trace = TraceCapture(self.logging_dir / "trace",
-                                  enabled=bool(cfg.get("profile", False)))
+                                  enabled=bool(cfg.get("profile", False))
+                                  and self.is_main)
         self.fast_dev_run = bool(cfg.debug.get("fast_dev_run", False))
         self._preempted = False
         self.ema_decay = float(cfg.train.get("ema_decay") or 0.0)
@@ -214,14 +234,21 @@ class Trainer:
                 bs = int(sizes[e + 1])
         return bs
 
+    def _rank_span(self, dataset_len: int, batch_size: int, accum: int):
+        """(the rank's stripe of the dataset, the rows one superstep takes
+        from it), as the EpochLoader counts them."""
+        world = dist.world_size()
+        local = max(batch_size // world, 1)
+        return (dataset_len // world,
+                local * microbatch_count(self.disc_freq, self.gen_freq, accum))
+
     def _fold_at(self, dataset_len: int, batch_size: int, accum: int) -> int:
         """train.fold_steps (1 under fast_dev_run), clamped so one fold span
-        fits the dataset."""
+        fits the rank's stripe of the dataset."""
         fold = 1 if self.fast_dev_run else max(
             1, int(self.cfg.train.get("fold_steps") or 1))
-        span = batch_size * microbatch_count(self.disc_freq, self.gen_freq,
-                                             accum)
-        return min(fold, max(1, dataset_len // max(span, 1)))
+        per_rank, span = self._rank_span(dataset_len, batch_size, accum)
+        return min(fold, max(1, per_rank // max(span, 1)))
 
     def _epoch_superstep_table(self, dataset_len: int,
                                num_epochs: int) -> List[int]:
@@ -231,9 +258,9 @@ class Trainer:
         table = []
         for e in range(num_epochs):
             bs, accum = self._batch_size_at(e), self._accum_factor(e)
-            span = bs * microbatch_count(self.disc_freq, self.gen_freq, accum)
+            per_rank, span = self._rank_span(dataset_len, bs, accum)
             fold = self._fold_at(dataset_len, bs, accum)
-            table.append((dataset_len // (span * fold)) * fold)
+            table.append((per_rank // (span * fold)) * fold)
         return table
 
     def _update_epoch_schedules(self, replay: bool = False):
@@ -264,7 +291,8 @@ class Trainer:
         n_micro = microbatch_count(self.disc_freq, self.gen_freq, accum)
         return EpochLoader(ds, self.current_batch_size,
                            n_micro=n_micro * self._active_fold,
-                           seed=self.seed)
+                           seed=self.seed, process_index=dist.rank(),
+                           process_count=dist.world_size())
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
@@ -374,6 +402,20 @@ class Trainer:
               "the next superstep boundary", flush=True)
         self._preempted = True
 
+    def _stop_for_rescue(self, n_steps: Optional[int] = None) -> bool:
+        """Whether to stop and save the rescue after loader step ``n_steps``
+        (None: at the epoch's end). One process reads its own flag. On more
+        than one rank, the ranks agree (``any_process_flag``) at every
+        PREEMPT_SYNC_EVERY-th step and at the epoch's end, and nowhere
+        else: a rank that stopped alone would leave the others waiting in
+        their next collective."""
+        if dist.world_size() == 1:
+            return self._preempted
+        if n_steps is not None and n_steps % PREEMPT_SYNC_EVERY:
+            return False
+        self._preempted = dist.any_process_flag(self._preempted)
+        return self._preempted
+
     def fit(self):
         num_epochs = 1 if self.fast_dev_run else int(self.cfg.train.num_epochs)
         old_handlers = []
@@ -422,11 +464,12 @@ class Trainer:
                     for k, v in metrics.items():
                         epoch_metrics.setdefault(f"train/{k}", []).append(v)
                 n_steps += 1
-                if self.fast_dev_run or self._preempted:
+                if self.fast_dev_run or self._stop_for_rescue(n_steps):
                     break
             means = {k: float(torch.stack(v).mean())
                      for k, v in epoch_metrics.items()}
             dt = time.perf_counter() - t_epoch   # after the fetch above
+            # the global batch: every rank's images
             means["perf/images_per_sec"] = (
                 self.current_batch_size * loader.n_micro * n_steps
                 / max(dt, 1e-9))
@@ -434,7 +477,7 @@ class Trainer:
             loss_str = " ".join(f"{k.split('/')[-1]}={v:.4f}"
                                 for k, v in means.items())
             print(f"epoch {self.epoch} [{dt:.1f}s] {loss_str}", flush=True)
-            if self._preempted:
+            if self._stop_for_rescue():
                 self._save_rescue()
                 return
             if (self.epoch % int(self.cfg.val.get("every_n_epochs", 1)) == 0
@@ -443,8 +486,11 @@ class Trainer:
             self.epoch += 1
 
     def _save_rescue(self):
-        """The current state into the rescue directory; the interrupted
-        epoch counts as done (a resume starts at the next one)."""
+        """The current state into the rescue directory, by rank 0; the
+        interrupted epoch counts as done (a resume starts at the next
+        one)."""
+        if not self.is_main:
+            return
         CheckpointManager(self._rescue_dir()).save_best(
             self.checkpoint_payload(), epoch=self.epoch, fid=None,
             meta={"rescue": True, "version": self.version,
@@ -542,8 +588,31 @@ class Trainer:
         evaluator, FID and KID; the figures; with save_ckpts, the best-FID
         checkpoint.
         Without FID every validation counts as an improvement, so the
-        latest epoch's checkpoint is the one kept. Returns the FID/KID
-        metrics (empty without an evaluator)."""
+        latest epoch's checkpoint is the one kept. Rank 0 draws and
+        measures; the other ranks wait in the broadcast of its metrics and
+        then make the same best-FID decision (only rank 0 saves). Returns
+        the FID/KID metrics (empty without an evaluator)."""
+        metrics = dist.broadcast_metrics(
+            self._draw_validation(global_step) if self.is_main else {})
+        # the best-FID policy: selection on the uncalibrated FID where there
+        # are no weights (self-consistent within a run), but only a
+        # calibrated FID names a checkpoint
+        fid = metrics.get("fid")
+        fid_sel = fid if fid is not None else metrics.get("fid_uncalibrated")
+        improved = fid_sel is None or fid_sel < self.best_fid
+        if improved and fid_sel is not None:
+            self.best_fid = fid_sel
+        if improved:
+            self.ckpt.save_best(
+                self.checkpoint_payload(), epoch=self.epoch, fid=fid,
+                meta={"best_fid": (self.best_fid
+                                   if self.best_fid != float("inf") else None),
+                      "fid_calibrated": self._fid_calibrated()})
+        return metrics
+
+    def _draw_validation(self, global_step: int) -> Dict[str, float]:
+        """The grids, FID/KID and the figures of one validation; returns
+        the FID/KID metrics."""
         cfg = self.cfg
         mean, std = cfg.train.data_mean, cfg.train.data_std
         try:
@@ -570,18 +639,4 @@ class Trainer:
             print("  " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()),
                   flush=True)
         self._draw_figures(params, metrics, global_step)
-        # the best-FID policy: selection on the uncalibrated FID where there
-        # are no weights (self-consistent within a run), but only a
-        # calibrated FID names a checkpoint
-        fid = metrics.get("fid")
-        fid_sel = fid if fid is not None else metrics.get("fid_uncalibrated")
-        improved = fid_sel is None or fid_sel < self.best_fid
-        if improved and fid_sel is not None:
-            self.best_fid = fid_sel
-        if improved:
-            self.ckpt.save_best(
-                self.checkpoint_payload(), epoch=self.epoch, fid=fid,
-                meta={"best_fid": (self.best_fid
-                                   if self.best_fid != float("inf") else None),
-                      "fid_calibrated": self._fid_calibrated()})
         return metrics

@@ -10,6 +10,16 @@ loss and advances after every micro-step, as in the JAX superstep. A task
 that ``clips_disc`` (WGAN) clamps D's parameters at the top of every
 micro-step, D phase and G phase alike; with ``ema_decay`` > 0 the EMA of
 G's parameters follows every G update.
+
+In a process group (parallel/dist.py) each rank passes its rows of the
+global batch; every random draw is the global batch's (``global_draws``),
+each phase's gradients are averaged over the ranks before the optimizer
+steps, and so are the metrics. The clip, the EMA, the extra state and the
+counters are the same arithmetic on every rank. The collectives are
+explicit rather than torch's DistributedDataParallel, whose reducer expects
+one fixed set of parameters per backward: the phases toggle
+``requires_grad``, the penalties take autograd.grad inside the loss, and D
+runs with frozen statistics in the G phase.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ from typing import Callable, Dict
 
 import torch
 
+from ..parallel import dist
 from .optim import optimizer_step
 from .state import TrainState, update_ema
 
@@ -39,8 +50,15 @@ def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
 
     ``batches`` holds tensors with a leading axis of
     (disc_freq + gen_freq)·accum micro-batches. Returns each metric averaged
-    over every micro-step that emitted it (HoloGAN's q_loss over all three),
-    as 0-d tensors left on the device."""
+    over every micro-step that emitted it (HoloGAN's q_loss over all three)
+    and over the ranks, as 0-d tensors left on the device."""
+    with dist.global_draws():
+        metrics = _superstep(task, state, batches, disc_freq, gen_freq,
+                             accum, ema_decay)
+    return dist.average_metrics(metrics)
+
+
+def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
     sums: Dict[str, torch.Tensor] = {}
     counts: Dict[str, int] = {}
     i = 0
@@ -68,6 +86,7 @@ def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
                     counts[k] = counts.get(k, 0) + 1
+            dist.average_grads(net.parameters())
             if is_disc:
                 optimizer_step(opt, schedule, state.d_steps)
                 state.d_steps += 1

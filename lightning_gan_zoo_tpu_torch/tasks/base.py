@@ -14,7 +14,10 @@ counterpart of the JAX package's ``discriminator_hp`` twin: float32 with
 autocast off at ``train.penalty_precision: 32``, the bf16 policy at 16, and
 never an update of D's BatchNorm buffers. Every ``torch.Generator`` the task
 draws from is listed by ``generators()``, so a checkpoint can carry their
-states and a resumed run draws what the uninterrupted run would have.
+states and a resumed run draws what the uninterrupted run would have. Each
+draw with a batch axis goes through ``parallel.dist.draw_rows``: in a
+data-parallel superstep every rank draws for the global batch and keeps its
+rows, so the streams are the same on every rank.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 from ..config.node import Config
 from ..config.registry import instantiate
 from ..models.layers import frozen_stats
+from ..parallel.dist import draw_rows
 
 
 class GANTask:
@@ -75,8 +79,9 @@ class GANTask:
 
     def sample_z(self, n: int, generator: torch.Generator | None = None
                  ) -> torch.Tensor:
-        return self.noise_distn.sample((n, self.noise_dim),
-                                       generator or self.z_generator)
+        gen = generator or self.z_generator
+        return draw_rows(
+            lambda m: self.noise_distn.sample((m, self.noise_dim), gen), n)
 
     def configure_optimizers(self, steps_per_epoch: int,
                              epoch_supersteps: Optional[Sequence[int]] = None):

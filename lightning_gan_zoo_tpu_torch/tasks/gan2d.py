@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import losses as L
+from ..parallel.dist import draw_rows
 from .base import GANTask
 
 
@@ -95,8 +96,9 @@ class WGANGP(WGAN):
         return {**super().generators(), "gp_alpha": self.alpha_generator}
 
     def sample_gp_alpha(self, n: int) -> torch.Tensor:
-        return torch.rand((n, 1, 1, 1), generator=self.alpha_generator,
-                          device=self.device)
+        return draw_rows(lambda m: torch.rand(
+            (m, 1, 1, 1), generator=self.alpha_generator, device=self.device),
+            n)
 
     def disc_loss(self, batch, z, extra):
         real = batch["image"]

@@ -1,6 +1,7 @@
 """Experiment logging: scalars to CSV, image grids to PNG (counterpart of
 lightning_gan_zoo_tpu/utils/logging.py, whose TensorBoard writer is not
-ported). Files land under ``output/<name>/<version>``."""
+ported). Files land under ``output/<name>/<version>``; a logger that is not
+``enabled`` (a data-parallel rank other than 0) writes nothing."""
 from __future__ import annotations
 
 import csv
@@ -14,13 +15,17 @@ from ..figures.image_io import save_png
 
 
 class ExperimentLogger:
-    def __init__(self, logging_dir: str | Path):
+    def __init__(self, logging_dir: str | Path, enabled: bool = True):
         self.dir = Path(logging_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.csv_path = self.dir / "metrics.csv"
         self._csv_fields: list[str] = []
 
     def log_scalars(self, metrics: Dict[str, float], step: int):
+        if not self.enabled:
+            return
         metrics = {k: float(v) for k, v in metrics.items()}
         row = {"step": step, "time": time.time(), **metrics}
         fields = sorted(set(self._csv_fields) | set(row))
@@ -41,4 +46,6 @@ class ExperimentLogger:
 
     def log_image(self, name: str, image_hwc: np.ndarray, step: int):
         """Write an HWC [0, 1] image to ``images/<name>_step<step>.png``."""
+        if not self.enabled:
+            return
         save_png(self.dir / "images" / f"{name}_step{step}.png", image_hwc)

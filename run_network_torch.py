@@ -15,11 +15,22 @@ CUDA device ``--device cuda`` fails, it never falls back to the CPU.
 (FID/KID with ``calc_fid``) and prints ``eval k=v …``; it trains and saves
 nothing. SIGTERM or SIGUSR1 during training saves the state to
 ``<output_root>/<name>/ckpts_rescue`` at the next superstep boundary and
-exits 0. Features the port has not reached yet (the multi-device axes)
-fail with a "not yet ported" error.
+exits 0.
+
+Data parallelism (``num_gpus=N``, ``train.batch_size`` the global batch):
+without torchrun's environment, N worker processes are spawned in one
+group, rank r on cuda:r over NCCL (N is cut to the cards there are), or
+with ``--device cpu`` N processes over gloo; the kernels are built once
+before they start, SIGTERM/SIGUSR1 reach every rank, only rank 0 prints,
+and the exit code is non-zero when any rank fails. Under torchrun
+(``WORLD_SIZE`` set) this process is the rank the environment names. The
+other multi-device features (``num_sp``, ``num_tp`` > 1, ``zero_opt``,
+``fsdp``) fail with a "not yet ported" error.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 from pathlib import Path
 
@@ -76,6 +87,59 @@ def main(argv=None) -> int:
               f"(torch {torch.__version__})", file=sys.stderr)
         return 2
 
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    from lightning_gan_zoo_tpu_torch.runtime import loop
+    try:        # here too, before any rank starts
+        loop.check_ported(cfg)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if "WORLD_SIZE" in os.environ:            # a torchrun rank
+        device = dist.init_from_env(device)
+        print(f"[dist] rank {dist.rank()} of {dist.world_size()}, backend "
+              f"{torch.distributed.get_backend()}, {device}", flush=True)
+        try:
+            return _run_rank(device, cfg)
+        finally:
+            dist.shutdown()
+    n = int(cfg.get("num_gpus", 1) or 1)
+    devices = dist.rank_devices(device, n) if n > 1 else [device]
+    if len(devices) == 1:
+        if n > 1:
+            print(f"[dist] num_gpus={n}: world size 1 ({devices[0]}), no "
+                  "process group", flush=True)
+        return run(cfg, devices[0])
+    print(f"[dist] num_gpus={n}: world size {len(devices)}, backend "
+          f"{dist.backend_for(device)}, devices {', '.join(devices)}",
+          flush=True)
+    if torch.device(device).type == "cuda":
+        # once here, not N times at once in the ranks
+        from lightning_gan_zoo_tpu_torch.ops.cuda.build import build_library
+        build_library()
+    import torch.multiprocessing as mp
+    try:
+        dist.launch(_run_rank, (cfg,), devices)
+    except mp.ProcessExitedException as e:
+        print(f"error: rank {e.error_index} exited with code {e.exit_code}",
+              file=sys.stderr)
+        return e.exit_code if e.exit_code and e.exit_code > 0 else 1
+    except mp.ProcessRaisedException as e:
+        print(f"error: rank {e.error_index} failed:\n{e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_rank(device, cfg) -> int:
+    """One rank of a data-parallel run; only rank 0 prints."""
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    if dist.is_main_process():
+        return run(cfg, device)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return run(cfg, device)
+
+
+def run(cfg, device) -> int:
+    """Train (or with eval_only, evaluate) ``cfg`` on ``device``."""
     from lightning_gan_zoo_tpu_torch.runtime import loop
     try:
         trainer = loop.Trainer(cfg, device)

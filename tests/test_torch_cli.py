@@ -1,12 +1,16 @@
 """The port's CLI, run_network_torch.py, at small widths on the CPU: in a
 subprocess it trains HoloGAN, π-GAN, ANIGAN (with its figures) and the 2D
 families through the JAX package's conf tree (dc_gan with a checkpoint and
-a resume from it) and loads no JAX module; in-process it refuses what it
-cannot run with a clear message."""
+a resume from it, also on two gloo ranks with num_gpus=2, and a SIGTERM
+rescue of a two-rank run) and loads no JAX module; in-process it refuses
+what it cannot run with a clear message."""
+import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -99,7 +103,7 @@ def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
-    (["num_gpus=2"], "num_gpus"),
+    (["num_gpus=2", "zero_opt=true"], "zero_opt"),
     (["num_sp=2"], "num_sp"),
     (["num_tp=2"], "num_tp"),
     (["zero_opt=true"], "zero_opt=true"),
@@ -230,3 +234,87 @@ def test_package_imports_no_jax():
         assert pkg / module in files
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def test_cli_dc_gan_on_two_ranks_checkpoints_and_resumes(tmp_path):
+    """num_gpus=2 on the CPU: two gloo ranks train two epochs of the global
+    batch of 4 (6 supersteps of 2 rows × 2 micro-batches per rank and
+    epoch) and leave one version directory that rank 0 alone wrote: one
+    metrics row and one Real/Fake pair per epoch, one checkpoint. A 1-rank
+    and a 2-rank run each resume from it at epoch 2."""
+    args = ["+expt=dc_gan", *SMALL_2D, f"output_root={tmp_path}",
+            "--device", "cpu"]
+    first = _run_cli(args + ["num_gpus=2", "train.num_epochs=2",
+                             "save_ckpts=True"])
+    assert first.returncode == 0, first.stderr
+    assert "[dist] num_gpus=2: world size 2, backend gloo" in first.stdout
+    epochs = re.findall(r"^epoch (\d) \[.*\] (.*)$", first.stdout, re.M)
+    assert [e for e, _ in epochs] == ["0", "1"], first.stdout
+    assert "FOREIGN []" in first.stdout
+    assert [p.name for p in (tmp_path / "dc_gan").iterdir()] == ["version_0"]
+    run = tmp_path / "dc_gan" / "version_0"
+    assert sorted(p.name for p in run.iterdir()) == [
+        "ckpts", "images", "metrics.csv"]
+    assert len((run / "metrics.csv").read_text().splitlines()) == 1 + 2
+    assert {p.name for p in (run / "images").iterdir()} == {
+        f"{kind}_step{s}.png" for kind in ("Real", "Fake") for s in (12, 24)}
+    ckpts = run / "ckpts"
+    assert [p.name for p in ckpts.iterdir()] == ["model_epoch-1"]
+    for n in (1, 2):
+        out = _run_cli(args + [f"num_gpus={n}", "train.num_epochs=3",
+                               f"train.ckpt_dir={ckpts}", f"version=r{n}"])
+        assert out.returncode == 0, out.stderr
+        assert (f"Resuming from {ckpts / 'model_epoch-1'} at epoch 2, step "
+                "24") in out.stdout
+        epochs = re.findall(r"^epoch (\d) \[.*\] (.*)$", out.stdout, re.M)
+        assert [e for e, _ in epochs] == ["2"], out.stdout
+        for k in ("d_loss", "g_loss"):
+            assert re.search(rf"\b{k}=-?\d", epochs[0][1])
+        assert [p.name for p in (tmp_path / "dc_gan" / f"r{n}" / "ckpts"
+                                 ).iterdir()] == ["model_epoch-2"]
+
+
+def test_cli_sigterm_to_two_ranks_rescues_once(tmp_path):
+    """SIGTERM to the launcher of a 2-rank run reaches both ranks; they
+    agree to stop at the end of the epoch, rank 0 writes the one rescue and
+    every process exits 0. Every wait is bounded."""
+    log = tmp_path / "train.log"
+    env = {**os.environ, "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
+    with log.open("w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO_ROOT / "run_network_torch.py"),
+             "+expt=dc_gan", *SMALL_2D, "num_gpus=2", "save_ckpts=False",
+             "train.num_epochs=500", f"output_root={tmp_path}", "version=v0",
+             "--device", "cpu"],
+            cwd=REPO_ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.monotonic()
+        while "epoch 1 [" not in log.read_text(errors="replace"):
+            assert proc.poll() is None and time.monotonic() - t0 < 120, \
+                log.read_text()[-2000:]
+            time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    text = log.read_text()
+    assert rc == 0, text[-2000:]
+    assert text.count("[rescue] checkpointed epoch") == 1, text[-2000:]
+    rescue = list((tmp_path / "dc_gan" / "ckpts_rescue").iterdir())
+    assert len(rescue) == 1, rescue
+    meta = json.loads((rescue[0] / "train_meta.json").read_text())
+    assert meta["rescue"] is True and meta["version"] == "v0"
+    assert f"epoch {meta['epoch']} [" in text
+    assert f"epoch {meta['epoch'] + 1} [" not in text
+
+
+def test_cli_two_ranks_fail_on_a_batch_they_cannot_split(tmp_path):
+    """A global batch of 3 over 2 ranks fails in every rank with the JAX
+    loader's error, and the launcher exits non-zero."""
+    out = _run_cli(["+expt=dc_gan", *SMALL_2D, "train.batch_size=3",
+                    "num_gpus=2", f"output_root={tmp_path}", "--device",
+                    "cpu"])
+    assert out.returncode != 0
+    assert "global batch_size=3 must divide over 2 processes" in out.stderr
