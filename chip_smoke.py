@@ -136,12 +136,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      launches equal the one-device count; printed: seconds per superstep,
      the bytes each rank all-reduces per superstep (counted, and the
      gradients' from the parameter counts) and the gradient all-reduce's
-     ms (CUDA events).
+     ms (CUDA events);
+ 20. the yardsticks (lightning_gan_zoo_tpu_torch/tools/): 112 shapes
+     images at 32 px rendered on the card, held against the CPU's renders of the
+     same instances (uint8, at most 1 apart on at most 0.5 % of pixels);
+     π-GAN's yardstick config (SIREN width 48, 3 layers, 8 + 8 points,
+     noise 64, D 32, batch 16) on them through run_network_torch.main()
+     for 2 epochs, the resolution step cut from epoch 40 to epoch 1 (16 →
+     32 px): no trunk launch (the JAX rule fuses only widths that are
+     multiples of 128), finite losses, and every G and D parameter's Adam
+     count equal to its net's update count; then shapes_score on the
+     validation phase's HoloGAN checkpoint with the regressor fitted on
+     96 views (48 held out): one trilinear forward per commanded
+     azimuth, finite scores; pose MAE, r, identity ratio and seconds
+     printed.
 Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
-Each of phases 14–19 prints its seconds. The last lines are the card's
+Each of phases 14–20 prints its seconds. The last lines are the card's
 name and power limit, a JSON line describing
 each kernel (launches on the main paths and per superstep, error, time
 beside its plain version's and the library call's, and its bound from this
@@ -1794,6 +1807,111 @@ def native_decoder_phase():
               f"max|ImageFolder − PIL| {float(np.abs(got - pil).max()):.4f}")
 
 
+#: phase 20's shapes data: 96 train + 16 val images at 32 px (3 π-GAN
+#: supersteps of 2 × 16 per epoch)
+SHAPES_ROOT = REPO / "build" / "chip_smoke_shapes32"
+SHAPES_N = (96, 16)
+#: the card's renders against the CPU's of the same instances: uint8
+#: pixels at most 1 apart, at most this share of them differing
+SHAPES_PIXEL_SHARE = 0.005
+#: the regressor of phase 20's HoloGAN score, fitted at a reduced size
+SCORE_N_TRAIN, SCORE_N_TEST = 96, 48
+
+
+def yardsticks_phase():
+    """The zero-egress yardsticks through the port on the card: the shapes
+    dataset against the CPU's renders; π-GAN's yardstick config (SIREN
+    width 48, which runs the layer loop as the JAX rule says) through the
+    CLI across one resolution step, then every parameter's Adam count
+    equal to its net's update count; shapes_score on the validation
+    phase's HoloGAN checkpoint with a reduced regressor. Returns each
+    path's launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
+    from lightning_gan_zoo_tpu_torch.tools import (make_shapes_dataset,
+                                                   shapes_score)
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SHAPES_ROOT, ignore_errors=True)
+    make_shapes_dataset.write_dataset(SHAPES_ROOT, *SHAPES_N, 32,
+                                      device="cuda", log=lambda m: None)
+    card_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    diff, done = [], 0
+    for split, n in zip(("train", "val"), SHAPES_N):
+        for lo in range(0, n, make_shapes_dataset.BATCH):
+            k = min(make_shapes_dataset.BATCH, n - lo)
+            cpu, _ = make_shapes_dataset.render_batch(rng, k, 32, "cpu")
+            for j, img in enumerate(make_shapes_dataset.to_uint8(cpu)):
+                card = np.asarray(Image.open(
+                    SHAPES_ROOT / split / "shapes" / f"{lo + j:05d}.png"))
+                diff.append(np.abs(card.astype(int) - img).max(-1))
+                done += 1
+    diff = np.stack(diff)
+    share = float((diff > 0).mean())
+    print(f"yardsticks: {done} shapes images at 32 px rendered on the card "
+          f"in {card_s:.2f} s; against the CPU's renders max|diff| "
+          f"{int(diff.max())}, {share:.5f} of pixels differ (limit 1, "
+          f"{SHAPES_PIXEL_SHARE})")
+    check(done == sum(SHAPES_N) and diff.max() <= 1
+          and share <= SHAPES_PIXEL_SHARE,
+          "the card's shapes images differ from the CPU's")
+
+    # π-GAN's yardstick config, the annealing step cut from epoch 40 to 1
+    argv = [o for o in shapes_score.FAMILIES["pigan"]["overrides"]
+            if o != "dataset=synthetic"] + [
+        "dataset=celeb_a", f"filepaths.celeb_a_root={SHAPES_ROOT}",
+        "resolution_annealing.update_epochs=[1,2]", "train.num_epochs=2",
+        "~figures"]
+    trainer, launches, wall, printed = run_main(argv, st, "yardstick_pigan")
+    task, state = trainer.task, trainer.state
+    check(int(trainer.cfg.nerf.siren_dim_hidden) == 48
+          and task.training_resolution == 32
+          and "Training resolution → 32" in printed,
+          "the pigan yardstick run did not reach 32 px at width 48")
+    check(launches == {"fwd": 0, "bwd": 0},
+          f"width 48 launched the trunk kernels {launches}: the JAX rule "
+          f"fuses only multiples of 128")
+    rows = epoch_rows(trainer, ("train/d_loss", "train/r1", "train/g_loss"))
+    check(len(rows) == 2, f"{len(rows)} epochs logged, expected 2")
+    for name, net, opt, steps in (
+            ("G", task.generator, state.g_opt, state.g_steps),
+            ("D", task.discriminator, state.d_opt, state.d_steps)):
+        counts = {int(opt.state[p]["step"]) if opt.state[p] else None
+                  for p in net.parameters()}
+        check(steps > 0 and counts == {steps},
+              f"{name}'s Adam counts {counts} != its {steps} updates")
+    print(f"yardsticks: pigan width 48 through the CLI, 16 → 32 px, "
+          f"{state.d_steps} D and {state.g_steps} G updates in {wall:.1f} s, "
+          f"every parameter's Adam count the net's; trunk launches "
+          f"{launches}")
+
+    ckpt = HOLOGAN_FID_RUN / "ckpts"
+    reset_counts()
+    out = shapes_score.main([str(ckpt), "--json", "--family", "hologan",
+                             "--device", "cuda", "--n-train",
+                             str(SCORE_N_TRAIN), "--n-test",
+                             str(SCORE_N_TEST)])
+    torch.cuda.synchronize()
+    sweep_launches = read_counts()["trilinear"]
+    check(sweep_launches == {"fwd": shapes_score.N_VIEWS, "bwd": 0},
+          f"the HoloGAN sweep launched {sweep_launches}, expected one "
+          f"forward per azimuth")
+    check(all(math.isfinite(out[k]) for k in
+              ("pose_mae_deg", "pose_pearson_r", "real_regressor_mae_deg")),
+          f"shapes_score gave {out}")
+    print(f"yardsticks: shapes_score on the validation phase's HoloGAN "
+          f"checkpoint (epoch {out['epoch']}, regressor {SCORE_N_TRAIN} + "
+          f"{SCORE_N_TEST} views): pose MAE {out['pose_mae_deg']} deg, r "
+          f"{out['pose_pearson_r']}, identity ratio "
+          f"{out['identity_ratio']}, real-data MAE "
+          f"{out['real_regressor_mae_deg']} deg, {out['seconds']} s "
+          f"({out['seconds_regressor']} s fitting)")
+    return {"trilinear": sweep_launches, "siren_trunk": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     probe()
@@ -1836,7 +1954,8 @@ def main() -> int:
                         ("remat", remat_phase),
                         ("fast_dev_run", fast_dev_run_phase),
                         ("native_decoder", native_decoder_phase),
-                        ("data_parallel", data_parallel_phase)):
+                        ("data_parallel", data_parallel_phase),
+                        ("yardsticks", yardsticks_phase)):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         extras[name] = phase()
@@ -1851,13 +1970,17 @@ def main() -> int:
                   "hologan_nccl_1rank":
                       extras["data_parallel"]["hologan_nccl_1rank"],
                   "hologan_gloo_2rank_per_rank":
-                      extras["data_parallel"]["hologan_gloo_2rank"]}
+                      extras["data_parallel"]["hologan_gloo_2rank"],
+                  "hologan_shapes_score":
+                      extras["yardsticks"]["trilinear"]}
     trunk_paths = {"pigan": trunk_launches, "anigan": anigan_launches,
                    "anigan_displacement": disp_launches,
                    "pigan_serving": extras["serving"]["siren_trunk"],
                    "pigan_remat_supersteps": extras["remat"],
                    "pigan_gloo_2rank_per_rank":
-                       extras["data_parallel"]["pigan_gloo_2rank"]}
+                       extras["data_parallel"]["pigan_gloo_2rank"],
+                   "pigan_yardstick_width48":
+                       extras["yardsticks"]["siren_trunk"]}
     kernels = [
         {"name": f"trilinear_{k}", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k],

@@ -86,9 +86,11 @@ class SirenNet(nn.Module):
     of width dim_out.
 
     Dispatch, as the JAX SirenNet's: under the bf16 policy a (B, M, C) input
-    with dim_out == dim_hidden runs as one fused trunk
-    (ops/cuda/siren_trunk.py): on a card the hand-written kernels, which
-    raise on a width they do not take; on the CPU the trunk's plain version.
+    with dim_out == dim_hidden and dim_hidden a multiple of 128 runs as one
+    fused trunk (ops/cuda/siren_trunk.py): on a card the hand-written
+    kernels, which raise on a width they do not take; on the CPU the trunk's
+    plain version. Any other width runs the layer loop under either policy,
+    as in JAX (``fuses``).
     Under the f32 policy the layer loop computes the f32 function (exact
     sine, f32 products). That is the function the JAX package computes for
     precision 32 as well, with its own plain loop, so the loop here is that
@@ -112,9 +114,15 @@ class SirenNet(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.w0s = (W0_INITIAL,) + (W0,) * num_layers
 
+    def fuses(self, x: torch.Tensor) -> bool:
+        """The JAX SirenNet's rule for the fused trunk (its ``use_fused``
+        under the bf16 policy on the accelerator)."""
+        return (self.fused and self.bf16 and x.dim() == 3
+                and self.dim_out == self.dim_hidden
+                and self.dim_hidden % 128 == 0)
+
     def forward(self, x, gammas=None, betas=None):
-        if not (self.fused and self.bf16 and x.dim() == 3
-                and self.dim_out == self.dim_hidden):
+        if not self.fuses(x):
             for i, layer in enumerate(self.layers[:-1]):
                 x = layer(x, None if gammas is None else gammas[:, i],
                           None if betas is None else betas[:, i])

@@ -89,6 +89,7 @@ from ..parallel import dist
 from ..utils.logging import ExperimentLogger
 from ..utils.profiling import TraceCapture
 from .checkpoint import CheckpointManager
+from .optim import share_update_count
 from .state import create_train_state
 from .steps import map_batch, microbatch_count, superstep
 
@@ -328,6 +329,8 @@ class Trainer:
         task.discriminator.load_state_dict(payload["discriminator"])
         st.g_opt.load_state_dict(payload["g_opt"])
         st.d_opt.load_state_dict(payload["d_opt"])
+        share_update_count(st.g_opt, int(payload["g_steps"]))
+        share_update_count(st.d_opt, int(payload["d_steps"]))
         if st.g_ema is not None:
             if payload["g_ema"] is None:
                 raise ValueError("train.ema_decay > 0 but the checkpoint "

@@ -90,6 +90,27 @@ def adam(params, lr, betas: Sequence[float] = (0.9, 0.999), **_
                             eps=1e-8)
 
 
+def adamw(params, lr, betas: Sequence[float] = (0.9, 0.999),
+          weight_decay: float = 1e-2, **_) -> torch.optim.Optimizer:
+    """torch.optim.AdamW as the JAX package builds optax.adamw (eps 1e-8,
+    weight decay 1e-2 by default). Both decay by lr·wd·p with the scheduled
+    lr: optax adds wd·p to Adam's direction before the lr scales it, torch
+    multiplies p by 1 − lr·wd before the Adam step, and the direction does
+    not depend on p."""
+    return torch.optim.AdamW(params, lr=float(lr),
+                             betas=(float(betas[0]), float(betas[1])),
+                             eps=1e-8, weight_decay=float(weight_decay))
+
+
+def sgd(params, lr, momentum=None, **_) -> torch.optim.Optimizer:
+    """torch.optim.SGD as the JAX package builds optax.sgd: with a momentum
+    m the trace is t ← g + m·t (optax's ``trace``, no dampening, not
+    Nesterov), the update −lr·t at the scheduled lr; torch's buffer is the
+    same recurrence, its first value g."""
+    return torch.optim.SGD(params, lr=float(lr),
+                           momentum=float(momentum or 0.0))
+
+
 class RMSprop(torch.optim.Optimizer):
     """RMSprop with optax's update rule (``optax.rmsprop``, which the JAX
     package builds), not torch's:
@@ -144,6 +165,30 @@ def rmsprop(params, lr, alpha: float = 0.99, eps: float = 1e-8,
     (alpha 0.99, eps 1e-8), built as the optax-rule RMSprop above."""
     return RMSprop(params, lr=float(lr), alpha=float(alpha), eps=float(eps),
                    momentum=float(momentum or 0.0))
+
+
+def share_update_count(opt: torch.optim.Optimizer, count: int):
+    """Give an optimizer's state the one update count optax keeps for the
+    whole tree: every Adam(W) parameter's ``step`` becomes ``count``, and a
+    parameter with no state gets zero moments. Restored state may lack
+    some parameters or give them a later start (a checkpoint written while
+    parameters without a gradient were skipped); their moments are optax's
+    already (a zero gradient leaves them at zero), only the count differs.
+    Other kinds keep no count, and their state starts at zero when they
+    first step."""
+    if not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        return
+    steps = [s["step"] for s in opt.state.values() if "step" in s]
+    like = steps[0] if steps else torch.tensor(0.0)
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if "exp_avg" not in st:
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            st["step"] = torch.full_like(like, float(count))
 
 
 def optimizer_step(opt: torch.optim.Optimizer, schedule: Optional[Schedule],

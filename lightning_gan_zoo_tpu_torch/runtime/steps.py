@@ -9,7 +9,9 @@ takes 3 micro-batches. z is sampled per micro-step from the task's
 loss and advances after every micro-step, as in the JAX superstep. A task
 that ``clips_disc`` (WGAN) clamps D's parameters at the top of every
 micro-step, D phase and G phase alike; with ``ema_decay`` > 0 the EMA of
-G's parameters follows every G update.
+G's parameters follows every G update. Every parameter of the phase's net
+is updated at every step, a zero gradient standing in for a missing one,
+as optax updates every leaf.
 
 In a process group (parallel/dist.py) each rank passes its rows of the
 global batch; every random draw is the global batch's (``global_draws``),
@@ -41,6 +43,20 @@ def map_batch(fn: Callable, batch: dict) -> dict:
     shape_analysis) included."""
     return {k: map_batch(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in batch.items()}
+
+
+def fill_missing_grads(net: torch.nn.Module):
+    """A zero gradient for every parameter of ``net`` that has none, so the
+    optimizer updates the whole tree at every step, as optax does: one
+    update count for all of Adam's parameters, RMSprop's ν decayed and its
+    momentum carried on a zero gradient. π-GAN's and ANIGAN's D blocks above
+    the training resolution get no gradient until annealing brings them
+    in; the JAX package creates them at init and its count runs for them
+    from the first step. The ranks average only real gradients (the zeros
+    are the same everywhere), so the bytes reduced do not change."""
+    for p in net.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
@@ -87,6 +103,7 @@ def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
                     sums[k] = sums[k] + v if k in sums else v
                     counts[k] = counts.get(k, 0) + 1
             dist.average_grads(net.parameters())
+            fill_missing_grads(net)
             if is_disc:
                 optimizer_step(opt, schedule, state.d_steps)
                 state.d_steps += 1

@@ -190,16 +190,17 @@ def build_exported_generator(task, batch: int, pose: bool = False,
 def load_generator_weights(task, ckpt: str):
     """G's weights from the checkpoint ``find_ckpt`` picks in ``ckpt`` (or
     the checkpoint directory ``ckpt``), the EMA twin in place of its
-    parameters where the run kept one."""
+    parameters where the run kept one. Returns (the checkpoint's path, its
+    meta)."""
     from ..runtime.checkpoint import CheckpointManager
     path = CheckpointManager.find_ckpt(ckpt) or Path(ckpt)
-    payload, _ = CheckpointManager.restore(path)
+    payload, meta = CheckpointManager.restore(path)
     task.generator.load_state_dict(payload["generator"])
     if payload.get("g_ema") is not None:
         with torch.no_grad():
             for name, p in task.generator.named_parameters():
                 p.copy_(payload["g_ema"][name])
-    return path
+    return path, meta
 
 
 def export_generator(conf_dir, overrides: Sequence[str], batch: int,

@@ -145,6 +145,18 @@ def _adam(params, **kw):
     return adam(params, **kw)
 
 
+@register("torch.optim.AdamW")
+def _adamw(params, **kw):
+    from .runtime.optim import adamw
+    return adamw(params, **kw)
+
+
+@register("torch.optim.SGD")
+def _sgd(params, **kw):
+    from .runtime.optim import sgd
+    return sgd(params, **kw)
+
+
 @register("torch.optim.RMSprop")
 def _rmsprop(params, **kw):
     from .runtime.optim import rmsprop

@@ -232,9 +232,33 @@ def test_sirennet_bf16_runs_the_kernels_and_counts(gen):
 
 
 def test_sirennet_kernel_refuses_a_width_it_cannot_take(gen):
-    net = SirenNet(3, 96, 96, 2, bf16=True).cuda()
+    """The trunk op on the card raises at a width its kernels do not take
+    (SirenNet itself no longer sends it one: the next test)."""
+    h, layers = 96, 2
+    x = torch.randn(1, 10, 3, generator=gen, device="cuda")
+    args = [torch.zeros(*s, device="cuda") for s in
+            ((3, h), (layers, h, h), (layers + 1, h))]
+    g = torch.ones(1, 1, h, device="cuda")
     with pytest.raises(ValueError, match="dim_hidden"):
-        net(torch.randn(1, 10, 3, generator=gen, device="cuda"))
+        st.siren_trunk(x, *args, g, torch.zeros_like(g),
+                       (30.0,) + (1.0,) * layers)
+
+
+@pytest.mark.parametrize("h", [96, 48])
+def test_sirennet_off_a_multiple_of_128_runs_the_layer_loop(gen, h):
+    """As the JAX SirenNet, a bf16 SirenNet whose width is not a multiple
+    of 128 runs the layer loop on the card: no trunk launch, finite bf16
+    output and float32 gradients."""
+    net = SirenNet(3, h, h, 2, bf16=True).cuda()
+    x = torch.randn(2, 10, 3, generator=gen, device="cuda")
+    g = torch.randn(2, 2, h, generator=gen, device="cuda") * 0.1 + 1
+    fwd, bwd = st.FWD_LAUNCHES, st.BWD_LAUNCHES
+    y = net(x, g, g - 1)
+    y.float().square().sum().backward()
+    assert (st.FWD_LAUNCHES - fwd, st.BWD_LAUNCHES - bwd) == (0, 0)
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 10, h)
+    assert bool(torch.isfinite(y.float()).all())
+    assert all(bool(torch.isfinite(p.grad).all()) for p in net.parameters())
 
 
 @pytest.mark.parametrize("train", [True, False])

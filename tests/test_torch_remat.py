@@ -30,9 +30,12 @@ from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
 
 torch.set_num_threads(2)
 
-#: the bf16 policy, so the field runs the fused trunk (its plain version on
-#: the CPU)
-BF16 = [a for a in PIGAN_TINY if a != "precision=32"] + ["precision=16"]
+#: the bf16 policy at a SIREN width of 128, so the field runs the fused
+#: trunk (its plain version on the CPU): under the JAX rule a width that is
+#: not a multiple of 128 runs the layer loop
+BF16 = [a for a in PIGAN_TINY
+        if a not in ("precision=32", "nerf.siren_dim_hidden=32")] + [
+    "precision=16", "nerf.siren_dim_hidden=128"]
 REMAT = ["+nerf.remat=true"]
 
 

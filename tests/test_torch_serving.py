@@ -28,8 +28,10 @@ DC = ["+expt=dc_gan", "dataset=synthetic", "calc_fid=False",
 HOLO = ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
         "precision=32", "generator.in_planes=4",
         "discriminator.out_planes=4", "model.noise_dim=8"]
+#: SIREN width 128: the JAX rule fuses the trunk (a kernel node in the
+#: program) only at a multiple of 128
 PIGAN = ["+expt=pigan", "machine=local", "dataset=synthetic",
-         "calc_fid=False", "model.noise_dim=16", "nerf.siren_dim_hidden=32",
+         "calc_fid=False", "model.noise_dim=16", "nerf.siren_dim_hidden=128",
          "nerf.siren_num_layers=2", "nerf.n_pts_per_ray=4",
          "nerf.n_pts_per_ray_fine=4", "train.img_size=16", "~figures"]
 FAMILIES = {"dc_gan": DC, "hologan": HOLO, "pigan": PIGAN}
