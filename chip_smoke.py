@@ -150,11 +150,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      96 views (48 held out): one trilinear forward per commanded
      azimuth, finite scores; pose MAE, r, identity ratio and seconds
      printed.
+ 21. state sharding (parallel/sharding.py): (a) HoloGAN through
+     run_network_torch.main() as rank 0 of a one-rank NCCL group with
+     zero_opt=true fsdp=true (no-ops on one device) equals the run with no
+     group bit for bit; (b) all seven families at their configs' full
+     width, from their seeds on their halves of one global batch (dc_gan
+     with the G weight EMA; ANIGAN on the procedural analysed data), on
+     two gloo ranks on cuda:0 for 2 supersteps under plain data
+     parallelism, zero_opt and fsdp, under deterministic cuDNN: all three
+     end bit-identical (parameters, buffers, the optimizer state gathered
+     to the one-device format, the EMA twin), each rank's launches twice
+     phase 19's per-superstep count (HoloGAN, π-GAN) or plain's; printed:
+     the bytes of state each rank holds between supersteps (params,
+     optimizer, EMA from the tensors, and torch.cuda.memory_allocated), the
+     bytes each rank all-reduces, reduce-scatters and all-gathers per
+     superstep, and for phase 19's families seconds per superstep.
 Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
-Each of phases 14–20 prints its seconds. The last lines are the card's
+Each of phases 14–21 prints its seconds. The last lines are the card's
 name and power limit, a JSON line describing
 each kernel (launches on the main paths and per superstep, error, time
 beside its plain version's and the library call's, and its bound from this
@@ -1745,7 +1760,293 @@ def data_parallel_phase():
           f"from spawn to exit; {card_line()}")
     return {"hologan_nccl_1rank": launches,
             "hologan_gloo_2rank": paths["hologan"]["trilinear"],
-            "pigan_gloo_2rank": paths["pigan"]["siren_trunk"]}
+            "pigan_gloo_2rank": paths["pigan"]["siren_trunk"],
+            "per_rank": paths}
+
+
+#: phase 21 (b): every family at its config's full width (ANIGAN on the
+#: procedural analysed data, the argv completed by the phase) for
+#: SHARD_STEPS checked supersteps under each mode on two gloo ranks that
+#: share the card, and for DP_FAMILIES (dc_gan with the G weight EMA)
+#: SHARD_TIMED timed ones
+SHARD_FAMILIES = {
+    **DP_FAMILIES,
+    "wgan": ["+expt=wgan", "dataset=synthetic", "~figures"],
+    "wgan_gp": ["+expt=wgan_gp", "dataset=synthetic", "~figures"],
+    "gan_stability_r1": ["+expt=gan_stability_r1", "dataset=synthetic",
+                         "~figures"],
+    "anigan": ["+expt=anigan", "machine=small", "~figures"],
+}
+SHARD_MODES = ("plain", "zero_opt", "fsdp")
+SHARD_STEPS = 2
+SHARD_TIMED = 2
+SHARD_EMA = {"dc_gan": 0.999}
+SHARD_OUT = REPO / "build" / "chip_smoke_output" / "sharding"
+
+
+def shard_batches(name, cfg, task, device) -> dict:
+    """This rank's rows of one global batch of micro-batches: phase 19's
+    seeded images, or for ANIGAN the first loader step of its analysed
+    data (images and shape analyses, the rank's stripe)."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
+    b = (int(cfg.variable_batch_size.batch_sizes[0])
+         if "variable_batch_size" in cfg else int(cfg.train.batch_size))
+    w, r = dist.world_size(), dist.rank()
+    if name == "anigan":
+        from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+        from lightning_gan_zoo_tpu_torch.data.pipeline import EpochLoader
+        from lightning_gan_zoo_tpu_torch.runtime.loop import _dataset_kwargs
+        from lightning_gan_zoo_tpu_torch.runtime.steps import map_batch
+        ds = instantiate(cfg.dataset.train, **_dataset_kwargs(cfg))
+        loader = EpochLoader(ds, b, n_micro=df + gf, seed=0,
+                             process_index=r, process_count=w)
+        batch = next(iter(loader.epoch(0)))
+
+        def move(a):
+            return torch.from_numpy(a).to(device)
+        return {"image": move(batch["image"]).permute(0, 1, 4, 2, 3)
+                .contiguous(),
+                "shape_analysis": map_batch(move, batch["shape_analysis"])}
+    s, c = int(cfg.train.img_size), int(cfg.train.channels_img)
+    images = torch.rand(df + gf, b, c, s, s, device=device,
+                        generator=torch.Generator(device).manual_seed(11)
+                        ) * 2 - 1
+    return {"image": images[:, r * b // w:(r + 1) * b // w].contiguous()}
+
+
+def shard_supersteps(name: str, argv, mode: str, device, sent: dict
+                     ) -> dict:
+    """SHARD_STEPS supersteps of the family ``argv`` composes, from its
+    seed, the state sharded by ``mode``, on this rank's rows of one global
+    batch: the metrics, the full state gathered to the CPU, the kernel
+    launches, the bytes of each collective per superstep (``sent``,
+    counted by the caller), and between two supersteps the bytes of state
+    this rank holds and torch.cuda.memory_allocated; then, for
+    DP_FAMILIES, SHARD_TIMED supersteps on the host clock."""
+    import gc
+    import torch
+    from lightning_gan_zoo_tpu_torch.config import compose
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.parallel.sharding import held_bytes
+    from lightning_gan_zoo_tpu_torch.runtime.state import (
+        create_train_state, full_state)
+    from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
+    cfg = compose(REPO / "conf", argv)
+    task = instantiate(cfg.model.lm, cfg, str(SHARD_OUT), device=device)
+    df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
+    batches = shard_batches(name, cfg, task, device)
+    ema = SHARD_EMA.get(name, 0.0)
+    state = create_train_state(task, steps_per_epoch=4, ema=ema > 0,
+                               zero_opt=mode != "plain",
+                               fsdp=mode == "fsdp")
+    check((state.sharding is not None) == (mode != "plain"),
+          f"{name} {mode}: sharding {state.sharding}")
+    torch.cuda.synchronize(device)
+    reset_counts()
+    sent.clear()
+    metrics = [superstep(task, state, batches, df, gf, ema_decay=ema)
+               for _ in range(SHARD_STEPS)]
+    torch.cuda.synchronize(device)
+    out = {"launches": read_counts(),
+           "sent": {k: v / SHARD_STEPS for k, v in sent.items()},
+           "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
+    for net in (task.generator, task.discriminator):
+        net.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.synchronize(device)
+    out["held"] = held_bytes(task, state)
+    out["allocated"] = torch.cuda.memory_allocated(device)
+    step_s = []
+    for _ in range(SHARD_TIMED if name in DP_FAMILIES else 0):
+        t0 = time.perf_counter()
+        superstep(task, state, batches, df, gf, ema_decay=ema)
+        torch.cuda.synchronize(device)
+        step_s.append(time.perf_counter() - t0)
+    out["step_s"] = step_s
+    full = full_state(task, state)
+    out["state"] = {k: walk_to_cpu(v) for k, v in full.items()}
+    del task, state, full, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def walk_to_cpu(tree):
+    import torch
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: walk_to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(walk_to_cpu(v) for v in tree)
+    return tree
+
+
+def shard_rank(device, out_dir: str, families: dict) -> int:
+    """Phase 21 (b), one rank: every family of ``families`` (name → argv)
+    under every mode,
+    with the bytes that all_reduce, reduce_scatter and all_gather move
+    counted (the full buffer of each); results into out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as tdist
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sent = {}
+
+    def counting(kind, fn, size):
+        def counted(*args, **kwargs):
+            sent[kind] = sent.get(kind, 0) + size(*args)
+            return fn(*args, **kwargs)
+        return counted
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    tdist.all_reduce = counting("all_reduce", tdist.all_reduce,
+                                lambda t, *a: nbytes(t))
+    tdist.reduce_scatter = counting(
+        "reduce_scatter", tdist.reduce_scatter,
+        lambda out, parts, *a: sum(nbytes(t) for t in parts))
+    tdist.all_gather = counting(
+        "all_gather", tdist.all_gather,
+        lambda parts, t, *a: sum(nbytes(x) for x in parts))
+    with deterministic_cudnn():
+        results = {(name, mode): shard_supersteps(name, argv, mode, device,
+                                                  sent)
+                   for name, argv in families.items() for mode in SHARD_MODES}
+    torch.save(results, Path(out_dir) / f"rank{dist.rank()}.pt")
+    return 0
+
+
+def sharding_phase(per_superstep: dict, anigan_overrides: list):
+    """(a) HoloGAN through run_network_torch.main() as rank 0 of a one-rank
+    NCCL group with zero_opt=true fsdp=true (no-ops on one device) against
+    the run with no group, bit for bit; (b) SHARD_FAMILIES on two gloo
+    ranks sharing the card under plain data parallelism, zero_opt and
+    fsdp: the three end equal (parameters, buffers, the optimizer state
+    gathered to the one-device format, the EMA twin) and the ranks
+    bit-identical; each rank's launches SHARD_STEPS × phase 19's
+    ``per_superstep`` count (the other families: plain's, and ANIGAN's
+    trunks launched); printed: the bytes of state each rank holds between
+    supersteps (from the tensors and torch.cuda.memory_allocated), the
+    bytes of each collective per superstep and the seconds per superstep
+    (DP_FAMILIES)."""
+    import os
+    import torch
+    from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    argv = ["+expt=hologan", "dataset=synthetic", "calc_fid=False",
+            "save_ckpts=False", "~figures", "train.num_epochs=1",
+            "dataset.n=192"]                   # 2 supersteps of 32 × 3
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(dist.free_port())}
+    with deterministic_cudnn():
+        ref, ref_launches, _, _ = run_main(argv, kt, "shard_no_group")
+        os.environ.update(env)
+        try:
+            trainer, launches, wall, printed = run_main(
+                argv + ["zero_opt=true", "fsdp=true"], kt, "shard_nccl")
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+    check("[dist] rank 0 of 1, backend nccl" in printed,
+          "the one-rank run did not join a NCCL group")
+    check(trainer.state.sharding is None, "one rank sharded its state")
+    check(launches == ref_launches, f"NCCL launches {launches}, no group "
+          f"{ref_launches}")
+    differ = [f"{net}.{k}" for net in ("generator", "discriminator")
+              for k, v in getattr(trainer.task, net).state_dict().items()
+              if not torch.equal(v, getattr(ref.task, net).state_dict()[k])]
+    check(not differ, f"one-rank NCCL with zero_opt and fsdp differs from no "
+          f"group: {differ[:5]}")
+    print(f"sharding (a): HoloGAN at full width, 2 supersteps, one-rank NCCL "
+          f"group with zero_opt=true fsdp=true bit-identical to no group, "
+          f"trilinear launches {launches}; {wall:.1f} s ({card_line()})")
+    del trainer, ref
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(SHARD_OUT, ignore_errors=True)
+    SHARD_OUT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    families = {**SHARD_FAMILIES,
+                "anigan": SHARD_FAMILIES["anigan"] + list(anigan_overrides)}
+    dist.launch(shard_rank, (str(SHARD_OUT), families), ["cuda:0", "cuda:0"],
+                backend="gloo")
+    spawn_wall = time.perf_counter() - t0
+    ranks = [torch.load(SHARD_OUT / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    paths = {}
+    for name in SHARD_FAMILIES:
+        plain = ranks[0][name, "plain"]
+        for r in ranks:
+            for mode in SHARD_MODES:
+                got = r[name, mode]
+                differ = differing(got["state"], plain["state"])
+                check(not differ, f"{name} {mode}: differs from plain data "
+                      f"parallelism on two ranks: {differ[:5]}")
+                check(got["metrics"] == plain["metrics"],
+                      f"{name} {mode}: metrics {got['metrics']} vs plain "
+                      f"{plain['metrics']}")
+                want = ({k: {d: SHARD_STEPS * n for d, n in v.items()}
+                         for k, v in per_superstep[name].items()}
+                        if name in per_superstep else plain["launches"])
+                check(got["launches"] == want, f"{name} {mode}: a rank "
+                      f"launched {got['launches']}, want {want}")
+        check(plain["state"]["g_ema"] is not None
+              or name not in SHARD_EMA, f"{name}: no EMA")
+        check(name != "anigan" or min(
+            plain["launches"]["siren_trunk"].values()) > 0,
+              "anigan launched no trunk kernel")
+        for mode in SHARD_MODES:
+            r0, r1 = ranks[0][name, mode], ranks[1][name, mode]
+            check(r0["held"] == r1["held"], f"{name} {mode}: the ranks hold "
+                  f"{r0['held']} and {r1['held']}")
+            steps = sorted(r0["step_s"] + r1["step_s"])
+            timed = (f"{steps[len(steps) // 2]:.3f} s per superstep (host "
+                     f"clock, median of {len(steps)})" if steps
+                     else "not timed")
+            print(f"sharding (b) {name} {mode}: per rank between supersteps "
+                  f"params {r0['held']['params']} B, optimizer "
+                  f"{r0['held']['optimizer']} B, EMA {r0['held']['ema']} B "
+                  f"(tensors), torch.cuda.memory_allocated {r0['allocated']} "
+                  f"and {r1['allocated']} B; per rank and superstep "
+                  f"{ {k: int(v) for k, v in sorted(r0['sent'].items())} } "
+                  f"B by collective; {timed}; launches per rank "
+                  f"{r0['launches']}")
+        p, z, f = (ranks[0][name, m]["held"] for m in SHARD_MODES)
+        check(z["optimizer"] < p["optimizer"]
+              and f["optimizer"] == z["optimizer"]
+              and f["params"] < p["params"]
+              and (f["ema"] < p["ema"] or name not in SHARD_EMA),
+              f"{name}: the ranks do not hold their shards ({p}, {z}, {f})")
+        paths[name] = {m: ranks[0][name, m]["launches"] for m in SHARD_MODES}
+    print(f"sharding (b): plain, zero_opt and fsdp equal bit for bit on two "
+          f"gloo ranks on cuda:0 for {', '.join(SHARD_FAMILIES)} "
+          f"({SHARD_STEPS} supersteps each), "
+          f"{spawn_wall:.1f} s from spawn to exit; {card_line()}")
+    return {"hologan_nccl_1rank": launches,
+            **{f"hologan_gloo_2rank_{m}": paths["hologan"][m]["trilinear"]
+               for m in SHARD_MODES[1:]},
+            **{f"pigan_gloo_2rank_{m}": paths["pigan"][m]["siren_trunk"]
+               for m in SHARD_MODES[1:]}}
+
+
+def differing(a, b, where="") -> list:
+    """The paths at which two trees of tensors differ (torch.equal)."""
+    import torch
+    if torch.is_tensor(a):
+        same = torch.is_tensor(b) and a.shape == b.shape and torch.equal(a, b)
+        return [] if same else [where]
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{where} keys"]
+        return [d for k in a for d in differing(a[k], b[k], f"{where}.{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in differing(x, y, f"{where}[{i}]")]
+    return [] if a == b else [where]
 
 
 def native_decoder_phase():
@@ -1955,7 +2256,9 @@ def main() -> int:
                         ("fast_dev_run", fast_dev_run_phase),
                         ("native_decoder", native_decoder_phase),
                         ("data_parallel", data_parallel_phase),
-                        ("yardsticks", yardsticks_phase)):
+                        ("yardsticks", yardsticks_phase),
+                        ("sharding", lambda: sharding_phase(
+                            extras["data_parallel"]["per_rank"], data))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         extras[name] = phase()
@@ -1971,6 +2274,10 @@ def main() -> int:
                       extras["data_parallel"]["hologan_nccl_1rank"],
                   "hologan_gloo_2rank_per_rank":
                       extras["data_parallel"]["hologan_gloo_2rank"],
+                  "hologan_sharding_nccl_1rank":
+                      extras["sharding"]["hologan_nccl_1rank"],
+                  **{f"{k}_per_rank": v for k, v in extras["sharding"].items()
+                     if k.startswith("hologan_gloo")},
                   "hologan_shapes_score":
                       extras["yardsticks"]["trilinear"]}
     trunk_paths = {"pigan": trunk_launches, "anigan": anigan_launches,
@@ -1979,6 +2286,9 @@ def main() -> int:
                    "pigan_remat_supersteps": extras["remat"],
                    "pigan_gloo_2rank_per_rank":
                        extras["data_parallel"]["pigan_gloo_2rank"],
+                   **{f"{k}_per_rank": v
+                      for k, v in extras["sharding"].items()
+                      if k.startswith("pigan_gloo")},
                    "pigan_yardstick_width48":
                        extras["yardsticks"]["siren_trunk"]}
     kernels = [

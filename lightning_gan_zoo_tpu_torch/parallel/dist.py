@@ -32,6 +32,7 @@ import datetime
 import os
 import signal
 import socket
+import sys
 from typing import Callable, Dict, Iterable, List, Sequence
 
 import torch
@@ -119,15 +120,23 @@ def free_port() -> int:
 
 def _rank_main(rank_: int, fn: Callable, args: tuple, devices: Sequence[str],
                backend: str | None, port: int):
+    """One spawned rank. After ``fn`` returns, a signal the launcher passes
+    on late is ignored (the rank's work is done), and the process ends
+    without the interpreter's finalization, which takes about a second
+    with torch loaded and several under load (the rescue's SIGTERM-to-exit
+    time)."""
     device = init(rank_, len(devices), devices[rank_], backend=backend,
                   init_method=f"tcp://127.0.0.1:{port}")
     try:
         rc = fn(device, *args)
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            signal.signal(sig, signal.SIG_IGN)
         barrier()
     finally:
         tdist.destroy_process_group()
-    if rc:
-        raise SystemExit(rc)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(int(rc or 0))
 
 
 def launch(fn: Callable, args: tuple, devices: Sequence[str],
@@ -252,6 +261,35 @@ def average_grads(params: Iterable[torch.nn.Parameter]) -> int:
     for g, v in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(v.view_as(g))
     return flat.numel() * flat.element_size()
+
+
+def all_gather_flat(flat: torch.Tensor) -> torch.Tensor:
+    """Every rank's 1-D ``flat`` (one length on every rank), concatenated
+    in rank order (``flat`` itself without a group). The list form of the
+    call: torch 2.11 and later take it on NCCL and on gloo, CUDA tensors
+    included, where ``all_gather_into_tensor`` warns in recent torch and
+    its replacement is not in 2.11."""
+    w = world_size()
+    if w == 1:
+        return flat
+    out = torch.empty(w * flat.numel(), dtype=flat.dtype, device=flat.device)
+    tdist.all_gather(list(out.chunk(w)), flat)
+    return out
+
+
+def reduce_scatter_flat(flat: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the sum over the ranks of a 1-D ``flat`` made of
+    ``world`` equal blocks (the list form, as in ``all_gather_flat``)."""
+    w = world_size()
+    if w == 1:
+        return flat
+    if flat.numel() % w:
+        raise ValueError(f"{flat.numel()} elements do not split over {w} "
+                         "ranks")
+    out = torch.empty(flat.numel() // w, dtype=flat.dtype,
+                      device=flat.device)
+    tdist.reduce_scatter(out, list(flat.chunk(w)))
+    return out
 
 
 def average_metrics(metrics: Dict[str, torch.Tensor]

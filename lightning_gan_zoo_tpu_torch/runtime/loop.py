@@ -65,12 +65,21 @@ is agreed between the ranks every ``PREEMPT_SYNC_EVERY`` loader steps and at
 the epoch's end, and the rescue is saved once; rank 0 alone validates (the
 grids, FID/KID, the figures) and writes logs, traces and checkpoints, and
 its FID/KID are broadcast so that every rank makes the same best-FID
-decision. The other multi-device axes (``num_sp``, ``num_tp`` > 1,
-``zero_opt``, ``fsdp``) are not ported and raise NotImplementedError when
-switched on.
+decision. ``zero_opt`` (ZeRO-1: each rank holds its blocks of the
+optimizer state) and ``fsdp`` (ZeRO-3: of the parameters and the EMA twin
+too; implies zero_opt) shard the state over the ranks by the JAX leaf rule
+(parallel/sharding.py); on one rank they do nothing, as in the JAX
+Trainer. Where the full state leaves the superstep every rank gathers it
+at the same point (the JAX Trainer's ``gather_tree``): a checkpoint, the
+rescue, validation and its figures, ``eval_only``, ``debug.verbose_shape``
+and the end of ``fit``; a checkpoint is the full state in the one-device
+format, so it resumes at any world size with or without sharding. The
+other multi-device axes (``num_sp``, ``num_tp`` > 1) are not ported and
+raise NotImplementedError when switched on.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import time
@@ -90,7 +99,7 @@ from ..utils.logging import ExperimentLogger
 from ..utils.profiling import TraceCapture
 from .checkpoint import CheckpointManager
 from .optim import share_update_count
-from .state import create_train_state
+from .state import create_train_state, full_state
 from .steps import map_batch, microbatch_count, superstep
 
 
@@ -103,13 +112,8 @@ PREEMPT_SYNC_EVERY = 8
 def check_ported(cfg: Config):
     """Raise NotImplementedError naming the switched-on config features
     this package cannot run yet."""
-    found = []
-    for key in ("num_sp", "num_tp"):
-        if int(cfg.get(key, 1) or 1) > 1:
-            found.append(f"{key} > 1 (multi-device)")
-    for key in ("zero_opt", "fsdp"):
-        if cfg.get(key, False):
-            found.append(f"{key}=true")
+    found = [f"{key} > 1 (multi-device)" for key in ("num_sp", "num_tp")
+             if int(cfg.get(key, 1) or 1) > 1]
     if found:
         raise NotImplementedError(
             "not yet ported to lightning_gan_zoo_tpu_torch: "
@@ -159,11 +163,13 @@ class Trainer:
         # new checkpoints land in this run's directory; train.ckpt_dir is
         # only scanned for the resume; an evaluation (eval_only) writes
         # none and makes no checkpoint directory
+        self._saves = bool(cfg.get("save_ckpts", True)) and not bool(
+            cfg.get("eval_only", False))
         self.ckpt = CheckpointManager(
-            self.logging_dir / "ckpts",
-            save_ckpts=bool(cfg.get("save_ckpts", True))
-            and not bool(cfg.get("eval_only", False)) and self.is_main,
+            self.logging_dir / "ckpts", save_ckpts=self._saves and self.is_main,
             async_save=bool(cfg.get("save_ckpts_async", False)))
+        self.zero_opt = bool(cfg.get("zero_opt", False))
+        self.fsdp = bool(cfg.get("fsdp", False))
         self.trace = TraceCapture(self.logging_dir / "trace",
                                   enabled=bool(cfg.get("profile", False))
                                   and self.is_main)
@@ -311,33 +317,41 @@ class Trainer:
     def checkpoint_payload(self) -> dict:
         """The whole training state: both modules (buffers included), both
         optimizers, the EMA twin, the counters, the task's extra state and
-        the state of every random stream the training step draws from."""
+        the state of every random stream the training step draws from.
+        Sharded, it is gathered to the one-device format: every rank calls
+        this at the same point."""
         st, task = self.state, self.task
-        return {"generator": task.generator.state_dict(),
-                "discriminator": task.discriminator.state_dict(),
-                "g_opt": st.g_opt.state_dict(),
-                "d_opt": st.d_opt.state_dict(),
-                "g_ema": st.g_ema,
+        return {**full_state(task, st),
                 "d_steps": st.d_steps, "g_steps": st.g_steps,
                 "step": st.step, "extra": st.extra,
                 "rng": {k: g.get_state()
                         for k, g in task.generators().items()}}
 
     def load_checkpoint_payload(self, payload: dict):
-        st, task = self.state, self.task
-        task.generator.load_state_dict(payload["generator"])
-        task.discriminator.load_state_dict(payload["discriminator"])
-        st.g_opt.load_state_dict(payload["g_opt"])
-        st.d_opt.load_state_dict(payload["d_opt"])
+        """Restore a checkpoint; sharded, each rank takes its blocks of the
+        full state (no collective)."""
+        st, task, sh = self.state, self.task, self.state.sharding
+        with sh.restoring() if sh is not None else contextlib.nullcontext():
+            task.generator.load_state_dict(payload["generator"])
+            task.discriminator.load_state_dict(payload["discriminator"])
+        if sh is None:
+            st.g_opt.load_state_dict(payload["g_opt"])
+            st.d_opt.load_state_dict(payload["d_opt"])
+        else:
+            sh.g.load_optimizer_state(st.g_opt, payload["g_opt"])
+            sh.d.load_optimizer_state(st.d_opt, payload["d_opt"])
         share_update_count(st.g_opt, int(payload["g_steps"]))
         share_update_count(st.d_opt, int(payload["d_steps"]))
         if st.g_ema is not None:
             if payload["g_ema"] is None:
                 raise ValueError("train.ema_decay > 0 but the checkpoint "
                                  "holds no G weight EMA")
-            with torch.no_grad():
-                for k, v in st.g_ema.items():
-                    v.copy_(payload["g_ema"][k])
+            if sh is not None:
+                sh.load_ema(payload["g_ema"])
+            else:
+                with torch.no_grad():
+                    for k, v in st.g_ema.items():
+                        v.copy_(payload["g_ema"][k])
         st.d_steps, st.g_steps, st.step = (int(payload[k]) for k in
                                            ("d_steps", "g_steps", "step"))
         st.extra = {k: v.to(self.device) if torch.is_tensor(v) else v
@@ -407,11 +421,12 @@ class Trainer:
 
     def _stop_for_rescue(self, n_steps: Optional[int] = None) -> bool:
         """Whether to stop and save the rescue after loader step ``n_steps``
-        (None: at the epoch's end). One process reads its own flag. On more
-        than one rank, the ranks agree (``any_process_flag``) at every
-        PREEMPT_SYNC_EVERY-th step and at the epoch's end, and nowhere
-        else: a rank that stopped alone would leave the others waiting in
-        their next collective."""
+        (None: at the epoch's end, and after its validation). One process
+        reads its own flag. On more than one rank, the ranks agree
+        (``any_process_flag``) at every PREEMPT_SYNC_EVERY-th step, at the
+        epoch's end and after its validation, and nowhere else: a rank that
+        stopped alone would leave the others waiting in their next
+        collective."""
         if dist.world_size() == 1:
             return self._preempted
         if n_steps is not None and n_steps % PREEMPT_SYNC_EVERY:
@@ -432,6 +447,8 @@ class Trainer:
         finally:
             for sig, handler in old_handlers:
                 signal.signal(sig, handler)
+        if self.state.sharding is not None:
+            self.state.sharding.materialize()   # the trained G and D, whole
         self.ckpt.finalize()
         self.trace.close()
 
@@ -441,7 +458,7 @@ class Trainer:
             self.task, loader.steps_per_epoch() * self._active_fold,
             epoch_supersteps=self._epoch_superstep_table(len(loader.dataset),
                                                          num_epochs),
-            ema=self.ema_decay > 0.0)
+            ema=self.ema_decay > 0.0, zero_opt=self.zero_opt, fsdp=self.fsdp)
         self.resume()
         self._print_shapes()
         while self.epoch < num_epochs:
@@ -486,16 +503,23 @@ class Trainer:
             if (self.epoch % int(self.cfg.val.get("every_n_epochs", 1)) == 0
                     or self.fast_dev_run):
                 self.validate(self.state.step)
+                # a signal caught during the validation (while the other
+                # ranks wait for rank 0's metrics) stops the run here, not
+                # at the end of the whole next epoch
+                if self._stop_for_rescue():
+                    self._save_rescue()
+                    return
             self.epoch += 1
 
     def _save_rescue(self):
-        """The current state into the rescue directory, by rank 0; the
-        interrupted epoch counts as done (a resume starts at the next
-        one)."""
+        """The current state into the rescue directory, by rank 0 (every
+        rank gathers a sharded state); the interrupted epoch counts as done
+        (a resume starts at the next one)."""
+        payload = self.checkpoint_payload()
         if not self.is_main:
             return
         CheckpointManager(self._rescue_dir()).save_best(
-            self.checkpoint_payload(), epoch=self.epoch, fid=None,
+            payload, epoch=self.epoch, fid=None,
             meta={"rescue": True, "version": self.version,
                   "best_fid": (self.best_fid
                                if self.best_fid != float("inf") else None),
@@ -511,6 +535,16 @@ class Trainer:
         on."""
         if not bool(self.cfg.debug.get("verbose_shape", False)):
             return
+        with self._full_state():
+            self._print_shapes_of_generator()
+
+    def _full_state(self):
+        """The full parameters and EMA twin in the modules for the block (a
+        collective under fsdp; every rank enters it at the same point)."""
+        sh = self.state.sharding
+        return sh.full() if sh is not None else contextlib.nullcontext()
+
+    def _print_shapes_of_generator(self):
         modules = [(name or "generator", m) for name, m
                    in self.task.generator.named_modules()
                    if name.count(".") < 2]
@@ -554,7 +588,8 @@ class Trainer:
         checkpoint written (the constructor turned saving off). Returns the
         validation's metrics."""
         self.state = create_train_state(self.task, steps_per_epoch=1,
-                                        ema=self.ema_decay > 0.0)
+                                        ema=self.ema_decay > 0.0,
+                                        zero_opt=self.zero_opt, fsdp=self.fsdp)
         self.resume()
         self._print_shapes()
         if self.state.step == 0:
@@ -593,8 +628,13 @@ class Trainer:
         Without FID every validation counts as an improvement, so the
         latest epoch's checkpoint is the one kept. Rank 0 draws and
         measures; the other ranks wait in the broadcast of its metrics and
-        then make the same best-FID decision (only rank 0 saves). Returns
-        the FID/KID metrics (empty without an evaluator)."""
+        then make the same best-FID decision (only rank 0 saves; a sharded
+        state is gathered on every rank first). Returns the FID/KID metrics
+        (empty without an evaluator)."""
+        with self._full_state():
+            return self._validate(global_step)
+
+    def _validate(self, global_step: int) -> Dict[str, float]:
         metrics = dist.broadcast_metrics(
             self._draw_validation(global_step) if self.is_main else {})
         # the best-FID policy: selection on the uncalibrated FID where there
@@ -605,7 +645,7 @@ class Trainer:
         improved = fid_sel is None or fid_sel < self.best_fid
         if improved and fid_sel is not None:
             self.best_fid = fid_sel
-        if improved:
+        if improved and self._saves:
             self.ckpt.save_best(
                 self.checkpoint_payload(), epoch=self.epoch, fid=fid,
                 meta={"best_fid": (self.best_fid

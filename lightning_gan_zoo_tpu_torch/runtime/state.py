@@ -1,7 +1,10 @@
 """The train state (counterpart of lightning_gan_zoo_tpu/runtime/state.py):
 a plain object holding the two optimizers, their schedules, the step
 counters, the task's extra state and the optional EMA of G's parameters.
-The modules themselves belong to the task."""
+The modules themselves belong to the task. On more than one rank with
+``zero_opt`` or ``fsdp`` its ``sharding`` (parallel/sharding.py) holds
+the blocks the optimizers step, and under fsdp the EMA twin holds this
+rank's blocks of the sharded leaves."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +12,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from ..parallel import dist
+from ..parallel.sharding import StateSharding
 from .optim import Schedule
 
 
@@ -25,12 +30,24 @@ class TrainState:
     #: train.ema_decay > 0: an exponential moving average of G's
     #: parameters (not its buffers), by parameter name; None when off
     g_ema: Optional[Dict[str, torch.Tensor]] = None
+    #: zero_opt / fsdp on more than one rank, else None
+    sharding: Optional[StateSharding] = None
 
     def eval_g_params(self, generator: torch.nn.Module
                       ) -> Dict[str, torch.Tensor]:
-        """G's parameters for generation: the EMA twin when enabled, else
-        the live ones. Either way G's live buffers go with them, as the JAX
-        package pairs ``g_ema`` with the live ``g_state``."""
+        """G's parameters for generation, full tensors: the EMA twin when
+        enabled, else the live ones. Either way G's live buffers go with
+        them, as the JAX package pairs ``g_ema`` with the live ``g_state``.
+        Under fsdp only inside ``sharding.full()``, which gathers them."""
+        sh = self.sharding
+        if sh is not None and sh.fsdp:
+            params = (sh.ema_full if self.g_ema is not None
+                      else dict(generator.named_parameters())
+                      if sh.g.materialized else None)
+            if params is None:
+                raise RuntimeError("fsdp: G's parameters are full only "
+                                   "inside sharding.full()")
+            return params
         if self.g_ema is not None:
             return self.g_ema
         return dict(generator.named_parameters())
@@ -38,21 +55,48 @@ class TrainState:
 
 def create_train_state(task, steps_per_epoch: int,
                        epoch_supersteps: Optional[Sequence[int]] = None,
-                       ema: bool = False) -> TrainState:
+                       ema: bool = False, zero_opt: bool = False,
+                       fsdp: bool = False) -> TrainState:
+    """The state of a fresh run. ``zero_opt`` and ``fsdp`` (which implies
+    it) shard it over the ranks of the group; on one rank they do nothing,
+    as in the JAX Trainer."""
     d_opt, d_sched, g_opt, g_sched = task.configure_optimizers(
         steps_per_epoch, epoch_supersteps=epoch_supersteps)
     g_ema = ({n: p.detach().clone()
               for n, p in task.generator.named_parameters()} if ema else None)
-    return TrainState(d_opt=d_opt, g_opt=g_opt, d_schedule=d_sched,
-                      g_schedule=g_sched, extra=task.initial_extra(),
-                      g_ema=g_ema)
+    state = TrainState(d_opt=d_opt, g_opt=g_opt, d_schedule=d_sched,
+                       g_schedule=g_sched, extra=task.initial_extra(),
+                       g_ema=g_ema)
+    if (zero_opt or fsdp) and dist.world_size() > 1:
+        state.sharding = StateSharding(task, state, fsdp=fsdp)
+    return state
+
+
+def full_state(task, state: TrainState) -> Dict[str, Any]:
+    """G's and D's state_dicts, both optimizers' state_dicts and the EMA
+    twin, whole and in the one-device format: sharded, gathered (a
+    collective: every rank calls it at the same point)."""
+    sh = state.sharding
+    if sh is None:
+        return {"generator": task.generator.state_dict(),
+                "discriminator": task.discriminator.state_dict(),
+                "g_opt": state.g_opt.state_dict(),
+                "d_opt": state.d_opt.state_dict(), "g_ema": state.g_ema}
+    return {"generator": sh.g.full_state_dict(),
+            "discriminator": sh.d.full_state_dict(),
+            "g_opt": sh.g.full_optimizer_state(state.g_opt),
+            "d_opt": sh.d.full_optimizer_state(state.d_opt),
+            "g_ema": sh.full_ema()}
 
 
 def update_ema(state: TrainState, generator: torch.nn.Module, decay: float):
-    """g_ema ← decay·g_ema + (1 − decay)·params, after a G update."""
+    """g_ema ← decay·g_ema + (1 − decay)·params, after a G update; under
+    fsdp on this rank's blocks (elementwise, so the same values)."""
     names = list(state.g_ema)
     ema = [state.g_ema[n] for n in names]
-    params = dict(generator.named_parameters())
+    params = (state.sharding.g.local()
+              if state.sharding is not None and state.sharding.fsdp
+              else dict(generator.named_parameters()))
     with torch.no_grad():
         torch._foreach_mul_(ema, decay)
         torch._foreach_add_(ema, [params[n].detach() for n in names],

@@ -21,7 +21,16 @@ counters are the same arithmetic on every rank. The collectives are
 explicit rather than torch's DistributedDataParallel, whose reducer expects
 one fixed set of parameters per backward: the phases toggle
 ``requires_grad``, the penalties take autograd.grad inside the loss, and D
-runs with frozen statistics in the G phase.
+runs with frozen statistics in the G phase. For the same reasons the state
+sharding (``zero_opt``, ``fsdp``; parallel/sharding.py) is explicit rather
+than FSDP2's ``fully_shard``, which also splits dim 0 with padding where
+the JAX rule splits flax's trailing axis or keeps the leaf whole. With it,
+after a phase's backward: the gradients are reduced (all-reduced, or
+reduce-scattered under fsdp), missing ones filled with zeros, the blocks
+refreshed from the full parameters (so WGAN's clip reaches the state),
+each rank's optimizer steps its blocks, and one all-gather puts them back
+into the full parameters the next micro-step reads. Under fsdp the full
+parameters are gathered at the superstep's start and freed at its end.
 """
 from __future__ import annotations
 
@@ -78,16 +87,20 @@ def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
     sums: Dict[str, torch.Tensor] = {}
     counts: Dict[str, int] = {}
     i = 0
+    sh = state.sharding
+    if sh is not None:
+        sh.materialize()            # fsdp: the full parameters, gathered
     for is_disc, freq in ((True, disc_freq), (False, gen_freq)):
         net, other = ((task.discriminator, task.generator) if is_disc
                       else (task.generator, task.discriminator))
         opt, schedule = ((state.d_opt, state.d_schedule) if is_disc
                          else (state.g_opt, state.g_schedule))
+        shards = None if sh is None else (sh.d if is_disc else sh.g)
         loss_fn = task.disc_loss if is_disc else task.gen_loss
         net.requires_grad_(True)
         other.requires_grad_(False)
         for _ in range(freq):
-            opt.zero_grad(set_to_none=True)
+            net.zero_grad(set_to_none=True)
             for _a in range(accum):
                 micro = map_batch(lambda v: v[i], batches)
                 if task.clips_disc:
@@ -102,16 +115,25 @@ def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
                     counts[k] = counts.get(k, 0) + 1
-            dist.average_grads(net.parameters())
-            fill_missing_grads(net)
+            if shards is None:
+                dist.average_grads(net.parameters())
+                fill_missing_grads(net)
+            else:
+                shards.reduce_grads()
+                shards.fill_missing_grads()
+                shards.pull()
             if is_disc:
                 optimizer_step(opt, schedule, state.d_steps)
                 state.d_steps += 1
             else:
                 optimizer_step(opt, schedule, state.g_steps)
                 state.g_steps += 1
-                if ema_decay > 0.0 and state.g_ema is not None:
-                    update_ema(state, task.generator, ema_decay)
+            if shards is not None:
+                shards.gather_params()
+            if not is_disc and ema_decay > 0.0 and state.g_ema is not None:
+                update_ema(state, task.generator, ema_decay)
     task.generator.requires_grad_(True)
     task.discriminator.requires_grad_(True)
+    if sh is not None:
+        sh.release()                # fsdp: the blocks keep the state
     return {k: (sums[k] / counts[k]).float() for k in sums}

@@ -4,7 +4,7 @@ score its checkpoints with the port's yardsticks.
 
     python -m lightning_gan_zoo_tpu_torch.tools.yardstick_runs \\
         pigan|hologan|dc_gan [--out DIR] [--results FILE] [--epochs N] \\
-        [--n-train N] [--n-test N] [--device cuda]
+        [--seed N] [--n-train N] [--n-test N] [--device cuda]
 
 Each run is its scorer's model overrides (shapes_score.FAMILIES,
 digits_score.OVERRIDES) with the recipe's dataset and schedule on top, so
@@ -14,7 +14,9 @@ the latest validated one, not the best-FID one) and ``~figures``. The
 checkpoint of each epoch the JAX run scored is copied aside when its
 validation writes it (π-GAN epoch 68, dc_gan epoch 380). ``--epochs`` cuts
 ``train.num_epochs`` (a shortened run: its schedules differ from the
-recipe's). A run stopped by SIGTERM saves its rescue under
+recipe's). ``--seed`` sets the config's ``seed`` (the recipe's is 42): the
+initial weights and every random stream of training, the untrained row's
+weights too; the data and the scorer's regressor stay as they are. A run stopped by SIGTERM saves its rescue under
 ``<out>/<run>/runs``; run_network_torch.py with the printed overrides and
 ``train.ckpt_dir`` resumes it (this script starts each run afresh). The
 scores of the untrained generator, each kept epoch and the final state
@@ -142,15 +144,27 @@ def train(overrides: Sequence[str], device, keep: Sequence[int],
                 rates[1:]), 1) if len(rates) > 1 else None}
 
 
+def run_overrides(run: dict, data: Sequence[str], work: Path,
+                  epochs=None, seed=None) -> list:
+    """The training run's overrides: the recipe, its data, free validation,
+    and the ``--epochs`` and ``--seed`` cuts."""
+    return recipe(run["overrides"], *data, *FREE_VALIDATION,
+                  *([f"train.num_epochs={epochs}"] if epochs else []),
+                  *([f"seed={seed}"] if seed else []),
+                  f"output_root={work / 'runs'}", "version=run")
+
+
 def _csv(trainer):
     import csv
     with open(trainer.logger.csv_path) as f:
         return [r for r in csv.DictReader(f) if r.get("perf/images_per_sec")]
 
 
-def score_shapes(run, ckpts, n_train, n_test, device) -> dict:
+def score_shapes(run, ckpts, n_train, n_test, device, seed=None) -> dict:
     from . import shapes_score as ss
     fam = ss.FAMILIES[run["family"]]
+    if seed is not None:
+        fam = {**fam, "overrides": recipe(fam["overrides"], f"seed={seed}")}
     t0 = time.perf_counter()
     reg, real_mae = ss.train_regressor(fam["img"], n_train, n_test, device)
     out = {"real_regressor_mae_deg": round(real_mae, 2),
@@ -192,18 +206,20 @@ def main(argv: Sequence[str]) -> dict:
     out_dir = Path(_take(argv, "--out", REPO / "build" / "yardsticks"))
     results = _take(argv, "--results")
     epochs = _take(argv, "--epochs")
+    seed = _take(argv, "--seed")
     n_train = int(_take(argv, "--n-train", 1500))
     n_test = int(_take(argv, "--n-test", 400))
     device = torch.device(_take(argv, "--device", "cuda"))
     if len(argv) != 1 or argv[0] not in RUNS:
         sys.exit(f"usage: yardstick_runs {'|'.join(RUNS)} [--out DIR] "
-                 f"[--results FILE] [--epochs N] [--n-train N] "
+                 f"[--results FILE] [--epochs N] [--seed N] [--n-train N] "
                  f"[--n-test N] [--device cuda|cpu]")
     name, run = argv[0], RUNS[argv[0]]
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit("yardstick_runs: no CUDA device (pass --device cpu)")
     report = {"run": name, "card": card(), "sklearn": has_sklearn(),
-              "cut_epochs": int(epochs) if epochs else None}
+              "cut_epochs": int(epochs) if epochs else None,
+              "seed": int(seed) if seed else None}
     print(f"card: {report['card']}; sklearn importable: "
           f"{report['sklearn']}", flush=True)
     if run["data"][0] == "digits" and not report["sklearn"]:
@@ -215,9 +231,7 @@ def main(argv: Sequence[str]) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     (work / "snapshots").mkdir(parents=True)
     data = make_data(run, work / "data", device)
-    overrides = recipe(run["overrides"], *data, *FREE_VALIDATION,
-                       *([f"train.num_epochs={epochs}"] if epochs else []),
-                       f"output_root={work / 'runs'}", "version=run")
+    overrides = run_overrides(run, data, work, epochs, seed)
     print("train: " + " ".join(overrides), flush=True)
     took = train(overrides, device, run["keep"], work / "snapshots")
     trainer = took.pop("trainer")
@@ -230,7 +244,8 @@ def main(argv: Sequence[str]) -> dict:
     t0 = time.perf_counter()
     report["scores"] = (score_digits(ckpts, device)
                         if run["data"][0] == "digits" else
-                        score_shapes(run, ckpts, n_train, n_test, device))
+                        score_shapes(run, ckpts, n_train, n_test, device,
+                                     seed))
     report["scoring_seconds"] = round(time.perf_counter() - t0, 1)
     line = json.dumps(report, default=str)
     if results:

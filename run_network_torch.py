@@ -23,9 +23,12 @@ group, rank r on cuda:r over NCCL (N is cut to the cards there are), or
 with ``--device cpu`` N processes over gloo; the kernels are built once
 before they start, SIGTERM/SIGUSR1 reach every rank, only rank 0 prints,
 and the exit code is non-zero when any rank fails. Under torchrun
-(``WORLD_SIZE`` set) this process is the rank the environment names. The
-other multi-device features (``num_sp``, ``num_tp`` > 1, ``zero_opt``,
-``fsdp``) fail with a "not yet ported" error.
+(``WORLD_SIZE`` set) this process is the rank the environment names.
+``zero_opt=true`` (ZeRO-1: each rank holds its blocks of the optimizer
+state) and ``fsdp=true`` (ZeRO-3: of the parameters and the EMA twin too)
+shard the state over those ranks by the JAX package's leaf rule; on one
+rank they do nothing. The other multi-device axes (``num_sp``, ``num_tp``
+> 1) fail with a "not yet ported" error.
 """
 from __future__ import annotations
 

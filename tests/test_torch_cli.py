@@ -103,17 +103,23 @@ def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
-    (["num_gpus=2", "zero_opt=true"], "zero_opt"),
+    # zero_opt and fsdp are ported: beside an unported switch the refusal
+    # names that switch alone
+    pytest.param(["num_gpus=2", "zero_opt=true", "num_sp=2"], "num_sp",
+                 id="extra1-zero_opt"),
     (["num_sp=2"], "num_sp"),
     (["num_tp=2"], "num_tp"),
-    (["zero_opt=true"], "zero_opt=true"),
-    (["fsdp=true"], "fsdp=true"),
+    pytest.param(["zero_opt=true", "num_tp=2"], "num_tp",
+                 id="extra4-zero_opt=true"),
+    pytest.param(["fsdp=true", "num_sp=2"], "num_sp", id="extra5-fsdp=true"),
 ])
 def test_cli_refuses_unported(extra, message, tmp_path, capsys):
     rc = run_network_torch.main(SMALL + extra + [f"output_root={tmp_path}",
                                                  "--device", "cpu"])
     assert rc != 0
-    assert message in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert message in err
+    assert "zero_opt" not in err and "fsdp" not in err
 
 
 def test_cli_trains_anigan_with_figures_without_jax(tmp_path):
@@ -274,10 +280,10 @@ def test_cli_dc_gan_on_two_ranks_checkpoints_and_resumes(tmp_path):
                                  ).iterdir()] == ["model_epoch-2"]
 
 
-def test_cli_sigterm_to_two_ranks_rescues_once(tmp_path):
-    """SIGTERM to the launcher of a 2-rank run reaches both ranks; they
-    agree to stop at the end of the epoch, rank 0 writes the one rescue and
-    every process exits 0. Every wait is bounded."""
+def _sigterm_two_ranks(tmp_path, *extra) -> Path:
+    """A 2-rank dc_gan run sent SIGTERM once its epoch 1 is logged: one
+    rescue, every process exits 0, the rescue's epoch the last logged.
+    Every wait is bounded. Returns the rescue checkpoint."""
     log = tmp_path / "train.log"
     env = {**os.environ, "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
     with log.open("w") as f:
@@ -285,7 +291,7 @@ def test_cli_sigterm_to_two_ranks_rescues_once(tmp_path):
             [sys.executable, str(REPO_ROOT / "run_network_torch.py"),
              "+expt=dc_gan", *SMALL_2D, "num_gpus=2", "save_ckpts=False",
              "train.num_epochs=500", f"output_root={tmp_path}", "version=v0",
-             "--device", "cpu"],
+             *extra, "--device", "cpu"],
             cwd=REPO_ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
     try:
         t0 = time.monotonic()
@@ -308,6 +314,53 @@ def test_cli_sigterm_to_two_ranks_rescues_once(tmp_path):
     assert meta["rescue"] is True and meta["version"] == "v0"
     assert f"epoch {meta['epoch']} [" in text
     assert f"epoch {meta['epoch'] + 1} [" not in text
+    return rescue[0]
+
+
+def test_cli_sigterm_to_two_ranks_rescues_once(tmp_path):
+    """SIGTERM to the launcher of a 2-rank run reaches both ranks; they
+    agree to stop at the end of the epoch or of its validation, rank 0
+    writes the one rescue and every process exits 0."""
+    _sigterm_two_ranks(tmp_path)
+
+
+def test_cli_sigterm_to_two_fsdp_ranks_rescues_the_full_state(tmp_path):
+    """The same under fsdp (each rank holds its blocks of the parameters
+    and the optimizer state): one rescue, exit 0, and the rescue's
+    state.pt is the full state in the one-device format, every tensor of
+    the shape a one-device run's checkpoint has; it resumes on one device
+    at the next epoch."""
+    from lightning_gan_zoo_tpu_torch.runtime.checkpoint import (
+        CheckpointManager)
+    from lightning_gan_zoo_tpu_torch.runtime.loop import Trainer
+    rescue = _sigterm_two_ranks(tmp_path, "fsdp=true")
+    payload, meta = CheckpointManager.restore(rescue)
+    trainer = Trainer(compose(CONF_DIR, [
+        "+expt=dc_gan", *SMALL_2D, f"output_root={tmp_path / 'one'}",
+        "save_ckpts=False", "train.num_epochs=1"]), "cpu")
+    trainer.fit()       # a one-device run's own state after an epoch
+    want = trainer.checkpoint_payload()
+
+    def shapes(tree):
+        if torch.is_tensor(tree):
+            return tuple(tree.shape)
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()
+                    if k != "param_groups"}
+        return None
+    assert shapes(payload["generator"]) == shapes(want["generator"])
+    assert shapes(payload["discriminator"]) == shapes(want["discriminator"])
+    assert shapes(payload["g_opt"]) == shapes(want["g_opt"])
+    assert shapes(payload["d_opt"]) == shapes(want["d_opt"])
+    assert payload["g_opt"]["state"], "no optimizer state in the rescue"
+    out = _run_cli(["+expt=dc_gan", *SMALL_2D,
+                    f"output_root={tmp_path / 'resumed'}",
+                    f"train.ckpt_dir={rescue.parent}",
+                    f"train.num_epochs={meta['epoch'] + 2}", "--device",
+                    "cpu"])
+    assert out.returncode == 0, out.stderr
+    assert f"Resuming from {rescue} at epoch {meta['epoch'] + 1}" \
+        in out.stdout
 
 
 def test_cli_two_ranks_fail_on_a_batch_they_cannot_split(tmp_path):

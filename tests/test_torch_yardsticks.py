@@ -321,6 +321,16 @@ def test_yardstick_run_is_its_scorers_model_with_the_recipe(run):
         assert got.dataset["_target_"].endswith(".ImageFolder")
 
 
+def test_yardstick_run_seed_sets_the_config_seed(tmp_path):
+    """``--seed`` replaces the recipe's seed (42) and nothing else."""
+    run = yardstick_runs.RUNS["hologan"]
+    base = compose(CONF_DIR, yardstick_runs.run_overrides(run, [], tmp_path))
+    got = compose(CONF_DIR, yardstick_runs.run_overrides(run, [], tmp_path,
+                                                         seed=43))
+    assert (base.seed, got.seed) == (42, 43)
+    assert got.to_container() == {**base.to_container(), "seed": 43}
+
+
 def test_yardstick_run_keeps_the_scored_epoch_and_scores_it(
         tmp_path, monkeypatch, digits_classifiers):
     """The dc_gan run cut to one epoch on the CPU, epoch 0 kept in place of
