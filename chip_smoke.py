@@ -165,11 +165,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      optimizer, EMA from the tensors, and torch.cuda.memory_allocated), the
      bytes each rank all-reduces, reduce-scatters and all-gathers per
      superstep, and for phase 19's families seconds per superstep.
+ 22. ray sharding (num_sp; parallel/dist.py's data × sp grid): one
+     superstep from the seed at the configs' full width on gloo ranks on
+     cuda:0, against one superstep on the whole batch on one device, under
+     deterministic cuDNN: π-GAN (machine=small, 16 px, batch 128) and
+     ANIGAN (machine=small, the procedural analysed data) on 1 data × 2 sp
+     ranks, each rendering half of every image's rays through the trunk
+     kernels; HoloGAN (precision 32) on 1 × 2 with the axis idle; π-GAN on
+     2 × 2 under fsdp. Every rank of a grid ends bit-identical, the
+     metrics and every parameter lie within DP_TOL of one device, each
+     rank launches the one-device count and every trunk launch sees half
+     the one-device rows M. Printed: the bytes of each collective per rank
+     and superstep (the image all-gather over the sp group, the
+     gradients' sum over it and mean over the data group, fsdp's
+     gathers), whether the state equals one device's bit for bit, and
+     seconds per superstep per rank beside one device's.
 Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
-Each of phases 14–21 prints its seconds. The last lines are the card's
+Each of phases 14–22 prints its seconds. The last lines are the card's
 name and power limit, a JSON line describing
 each kernel (launches on the main paths and per superstep, error, time
 beside its plain version's and the library call's, and its bound from this
@@ -1785,7 +1800,8 @@ SHARD_OUT = REPO / "build" / "chip_smoke_output" / "sharding"
 
 
 def shard_batches(name, cfg, task, device) -> dict:
-    """This rank's rows of one global batch of micro-batches: phase 19's
+    """This rank's rows of one global batch of micro-batches (its data
+    group's: the sp ranks of a group hold the same rows): phase 19's
     seeded images, or for ANIGAN the first loader step of its analysed
     data (images and shape analyses, the rank's stripe)."""
     import torch
@@ -1793,7 +1809,7 @@ def shard_batches(name, cfg, task, device) -> dict:
     df, gf = int(cfg.optimisation.disc_freq), int(cfg.optimisation.gen_freq)
     b = (int(cfg.variable_batch_size.batch_sizes[0])
          if "variable_batch_size" in cfg else int(cfg.train.batch_size))
-    w, r = dist.world_size(), dist.rank()
+    w, r = dist.data_size(), dist.data_rank()
     if name == "anigan":
         from lightning_gan_zoo_tpu_torch.config.registry import instantiate
         from lightning_gan_zoo_tpu_torch.data.pipeline import EpochLoader
@@ -1816,19 +1832,23 @@ def shard_batches(name, cfg, task, device) -> dict:
     return {"image": images[:, r * b // w:(r + 1) * b // w].contiguous()}
 
 
-def shard_supersteps(name: str, argv, mode: str, device, sent: dict
+def shard_supersteps(name: str, argv, mode: str, device, sent: dict,
+                     steps: int = SHARD_STEPS, timed: int | None = None
                      ) -> dict:
-    """SHARD_STEPS supersteps of the family ``argv`` composes, from its
+    """``steps`` supersteps of the family ``argv`` composes, from its
     seed, the state sharded by ``mode``, on this rank's rows of one global
     batch: the metrics, the full state gathered to the CPU, the kernel
-    launches, the bytes of each collective per superstep (``sent``,
-    counted by the caller), and between two supersteps the bytes of state
-    this rank holds and torch.cuda.memory_allocated; then, for
-    DP_FAMILIES, SHARD_TIMED supersteps on the host clock."""
+    launches, the rows M of each trunk forward (its backward sees the
+    same), the bytes of each collective per superstep (``sent``, counted
+    by count_collectives), and after them the bytes of state this rank
+    holds and torch.cuda.memory_allocated; then ``timed``
+    supersteps on the host clock (default: SHARD_TIMED for DP_FAMILIES,
+    else none)."""
     import gc
     import torch
     from lightning_gan_zoo_tpu_torch.config import compose
     from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as ct
     from lightning_gan_zoo_tpu_torch.parallel.sharding import held_bytes
     from lightning_gan_zoo_tpu_torch.runtime.state import (
         create_train_state, full_state)
@@ -1843,14 +1863,25 @@ def shard_supersteps(name: str, argv, mode: str, device, sent: dict
                                fsdp=mode == "fsdp")
     check((state.sharding is not None) == (mode != "plain"),
           f"{name} {mode}: sharding {state.sharding}")
-    torch.cuda.synchronize(device)
-    reset_counts()
-    sent.clear()
-    metrics = [superstep(task, state, batches, df, gf, ema_decay=ema)
-               for _ in range(SHARD_STEPS)]
-    torch.cuda.synchronize(device)
-    out = {"launches": read_counts(),
-           "sent": {k: v / SHARD_STEPS for k, v in sent.items()},
+    rows, trunk = [], ct.siren_trunk
+
+    def recorded(x, *args, **kwargs):
+        rows.append(int(x.shape[1]))
+        return trunk(x, *args, **kwargs)
+
+    ct.siren_trunk = recorded
+    try:
+        torch.cuda.synchronize(device)
+        reset_counts()
+        sent.clear()
+        metrics = [superstep(task, state, batches, df, gf, ema_decay=ema)
+                   for _ in range(steps)]
+        torch.cuda.synchronize(device)
+    finally:
+        ct.siren_trunk = trunk
+    out = {"launches": read_counts(), "rows": rows,
+           "batch_rows": int(batches["image"].shape[1]),
+           "sent": {k: v / steps for k, v in sent.items()},
            "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
     for net in (task.generator, task.discriminator):
         net.zero_grad(set_to_none=True)
@@ -1858,16 +1889,19 @@ def shard_supersteps(name: str, argv, mode: str, device, sent: dict
     torch.cuda.synchronize(device)
     out["held"] = held_bytes(task, state)
     out["allocated"] = torch.cuda.memory_allocated(device)
+    full = full_state(task, state)
+    out["state"] = {k: walk_to_cpu(v) for k, v in full.items()}
+    del full
+    if timed is None:
+        timed = SHARD_TIMED if name in DP_FAMILIES else 0
     step_s = []
-    for _ in range(SHARD_TIMED if name in DP_FAMILIES else 0):
+    for _ in range(timed):
         t0 = time.perf_counter()
         superstep(task, state, batches, df, gf, ema_decay=ema)
         torch.cuda.synchronize(device)
         step_s.append(time.perf_counter() - t0)
     out["step_s"] = step_s
-    full = full_state(task, state)
-    out["state"] = {k: walk_to_cpu(v) for k, v in full.items()}
-    del task, state, full, batches
+    del task, state, batches
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1886,32 +1920,14 @@ def walk_to_cpu(tree):
 
 def shard_rank(device, out_dir: str, families: dict) -> int:
     """Phase 21 (b), one rank: every family of ``families`` (name → argv)
-    under every mode,
-    with the bytes that all_reduce, reduce_scatter and all_gather move
-    counted (the full buffer of each); results into out_dir/rank<r>.pt."""
+    under every mode, with the collectives' bytes counted; results into
+    out_dir/rank<r>.pt."""
     import torch
-    import torch.distributed as tdist
     from lightning_gan_zoo_tpu_torch.parallel import dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sent = {}
-
-    def counting(kind, fn, size):
-        def counted(*args, **kwargs):
-            sent[kind] = sent.get(kind, 0) + size(*args)
-            return fn(*args, **kwargs)
-        return counted
-
-    def nbytes(t):
-        return t.numel() * t.element_size()
-    tdist.all_reduce = counting("all_reduce", tdist.all_reduce,
-                                lambda t, *a: nbytes(t))
-    tdist.reduce_scatter = counting(
-        "reduce_scatter", tdist.reduce_scatter,
-        lambda out, parts, *a: sum(nbytes(t) for t in parts))
-    tdist.all_gather = counting(
-        "all_gather", tdist.all_gather,
-        lambda parts, t, *a: sum(nbytes(x) for x in parts))
+    count_collectives(sent)
     with deterministic_cudnn():
         results = {(name, mode): shard_supersteps(name, argv, mode, device,
                                                   sent)
@@ -2031,6 +2047,291 @@ def sharding_phase(per_superstep: dict, anigan_overrides: list):
                for m in SHARD_MODES[1:]},
             **{f"pigan_gloo_2rank_{m}": paths["pigan"][m]["siren_trunk"]
                for m in SHARD_MODES[1:]}}
+
+
+#: phase 22: one superstep from the seed on gloo ranks that share the card
+#: in a grid of data × 2 ray-sharding ranks (num_sp=2), at the configs'
+#: full width, against one device: π-GAN and ANIGAN (the procedural
+#: analysed data, the argv completed by the phase) on 1 × 2, each rank
+#: rendering half of every image's rays; HoloGAN on 1 × 2, the axis idle;
+#: π-GAN on 2 × 2 under fsdp
+SP_FAMILIES = {"pigan": DP_FAMILIES["pigan"],
+               "anigan": SHARD_FAMILIES["anigan"],
+               "hologan": DP_FAMILIES["hologan"]}
+#: (rtol, atol) against one device: phase 19's, ANIGAN at π-GAN's (the
+#: same bf16 trunk)
+SP_TOL = {**DP_TOL, "anigan": DP_TOL["pigan"]}
+#: supersteps timed after the checked one, on each rank and on one device
+SP_TIMED = 2
+SP_OUT = REPO / "build" / "chip_smoke_output" / "ray_sharding"
+
+
+def sp_loss_grads(name: str, argv, device) -> dict:
+    """D's then G's loss and parameter gradients at the family's initial
+    parameters on this rank's rows of micro-batch 0, each reduced by the
+    superstep's rule (``dist.average_grads``, ray-partial where the render
+    was sharded), gathered to the CPU: the check of the ray-sharded
+    backward (Adam's first step moves a weight by about ±lr whatever its
+    gradient's size, so the parameters after one superstep cannot tell a
+    wrong gradient from a right one)."""
+    import gc
+    import torch
+    from lightning_gan_zoo_tpu_torch.config import compose
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    from lightning_gan_zoo_tpu_torch.runtime.steps import map_batch
+    cfg = compose(REPO / "conf", argv)
+    task = instantiate(cfg.model.lm, cfg, str(SP_OUT), device=device)
+    micro = map_batch(lambda v: v[0], shard_batches(name, cfg, task, device))
+    extra, out = task.initial_extra(), {}
+    with dist.global_draws():
+        for side, net, other, fn in (
+                ("d", task.discriminator, task.generator, task.disc_loss),
+                ("g", task.generator, task.discriminator, task.gen_loss)):
+            net.requires_grad_(True)
+            other.requires_grad_(False)
+            net.zero_grad(set_to_none=True)
+            dist.take_ray_partial()
+            z = task.sample_z(micro["image"].shape[0])
+            with task.autocast():
+                loss, _ = fn(micro, z, extra)
+            loss.backward()
+            partial = dist.take_ray_partial()
+            dist.average_grads(net.parameters(), partial)
+            out[side] = {
+                "partial": partial,
+                "loss": float(dist.average_metrics(
+                    {"loss": loss.detach()})["loss"]),
+                "grads": {n: p.grad.detach().cpu().clone() for n, p
+                          in net.named_parameters() if p.grad is not None}}
+    del task, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_job(name: str, argv, mode: str, device, sent: dict) -> dict:
+    """Phase 22's work for one family on one rank (or one device): the
+    loss gradients, then one superstep under ``mode`` and SP_TIMED timed
+    ones."""
+    return {"grads": sp_loss_grads(name, argv, device),
+            **shard_supersteps(name, argv, mode, device, sent, steps=1,
+                               timed=SP_TIMED)}
+
+
+def grads_within(got: dict, want: dict) -> float:
+    """The worst |got − want| / (1e-3 · max(1, max|want|)) over D's and
+    G's gradient leaves (≤ 1 passes: tests/test_torch_sp.py's bound); a
+    leaf one side lacks counts as zero there."""
+    import torch
+    worst = 0.0
+    for side in ("d", "g"):
+        g, w = got[side]["grads"], want[side]["grads"]
+        for k in set(g) | set(w):
+            a = w.get(k, torch.zeros_like(g.get(k, torch.zeros(()))))
+            b = g.get(k, torch.zeros_like(a))
+            tol = 1e-3 * max(1.0, float(a.abs().max()))
+            worst = max(worst, float((b.double() - a.double()).abs().max())
+                        / tol)
+    return worst
+
+
+def count_collectives(sent: dict):
+    """torch.distributed's all_reduce, all_gather and reduce_scatter count
+    the bytes they move (the full buffer of each) into ``sent``, by
+    operation and group: the sp group, the data group, or every rank."""
+    import torch.distributed as tdist
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def counting(kind, fn, size):
+        def counted(*args, **kwargs):
+            group = kwargs.get("group")
+            where = ("sp" if group is not None and group is dist._SP_GROUP
+                     else "data" if group is not None else "world")
+            key = f"{kind}/{where}"
+            sent[key] = sent.get(key, 0) + size(*args)
+            return fn(*args, **kwargs)
+        return counted
+
+    tdist.all_reduce = counting("all_reduce", tdist.all_reduce,
+                                lambda t, *a: nbytes(t))
+    tdist.reduce_scatter = counting(
+        "reduce_scatter", tdist.reduce_scatter,
+        lambda out, parts, *a: sum(nbytes(t) for t in parts))
+    tdist.all_gather = counting(
+        "all_gather", tdist.all_gather,
+        lambda parts, t, *a: sum(nbytes(x) for x in parts))
+
+
+def sp_rank(device, out_dir: str, jobs: dict) -> int:
+    """Phase 22, one rank of a data × sp grid: every job (key → family,
+    argv, mode) with its collectives' bytes counted; the results into
+    out_dir/rank<r>.pt."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sent = {}
+    count_collectives(sent)
+    with deterministic_cudnn():
+        results = {key: sp_job(name, argv, mode, device, sent)
+                   for key, (name, argv, mode) in jobs.items()}
+    results["grid"] = (dist.data_size(), dist.sp_size(), dist.data_rank(),
+                       dist.sp_rank())
+    torch.save(results, Path(out_dir) / f"rank{dist.rank()}.pt")
+    return 0
+
+
+def within(got: dict, want: dict, rtol: float, atol: float) -> float:
+    """The worst |got − want| − rtol·|want| over two trees of tensors, each
+    leaf compared where it is floating point and equal where not (≤ atol
+    passes)."""
+    import torch
+    worst = -math.inf
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            worst = max(worst, within(g, w, rtol, atol))
+        elif not w.is_floating_point():
+            worst = max(worst, 0.0 if torch.equal(g, w) else math.inf)
+        else:
+            worst = max(worst, float(((g.double() - w.double()).abs()
+                                      - rtol * w.double().abs()).max()))
+    return worst
+
+
+def ray_sharding_phase(anigan_overrides: list, device: str = "cuda:0",
+                       families: dict | None = None):
+    """SP_FAMILIES on two gloo ranks sharing the card as 1 data × 2 sp
+    ranks, and π-GAN on four as 2 × 2, against one device on the whole
+    batch, all under deterministic cuDNN (Adam's first steps turn a
+    last-bit difference of a near-zero gradient into one of ±lr, so one
+    device's own run-to-run spread under cuDNN's defaults exceeds
+    DP_TOL). First the loss gradients at the initial parameters, reduced
+    by the superstep's rule: each leaf within 1e-3 · max(1, max|g|) of
+    one device's, G's marked ray-partial for the NeRF families and D's
+    not. Then one superstep from the seed (π-GAN on 2 × 2 under fsdp):
+    every rank of a grid ends bit-identical (the full state), the metrics
+    within SP_TOL of one device, each rank's launches the one-device
+    count, and for the NeRF families each trunk launch on half the
+    one-device rows M. The losses and the parameters after the superstep
+    are held to SP_TOL too, the parameters a coarse check only (Adam's
+    first step). Printed per
+    family: the gradients' worst error against its bound, the
+    collectives' bytes per rank (the image all-gather over the sp group,
+    the gradients' sum over it and the data-group collectives) and
+    seconds per superstep beside one device's."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    families = families or {
+        **SP_FAMILIES,
+        "anigan": SP_FAMILIES["anigan"] + list(anigan_overrides)}
+    shutil.rmtree(SP_OUT, ignore_errors=True)
+    grids = {"1x2": ({n: (n, argv, "plain") for n, argv in families.items()},
+                     2),
+             "2x2": ({"pigan": ("pigan", families["pigan"], "fsdp")}, 4)}
+    ranks, walls = {}, {}
+    for grid, (jobs, n) in grids.items():
+        out = SP_OUT / grid
+        out.mkdir(parents=True)
+        t0 = time.perf_counter()
+        dist.launch(sp_rank, (str(out), jobs), [device] * n, backend="gloo",
+                    sp=2)
+        walls[grid] = time.perf_counter() - t0
+        ranks[grid] = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                       for r in range(n)]
+    with deterministic_cudnn():
+        one = {n: sp_job(n, argv, "plain", device, {})
+               for n, argv in families.items()}
+    paths = {}
+    for grid, (jobs, n) in grids.items():
+        for r, got in enumerate(ranks[grid]):
+            check(got["grid"] == (n // 2, 2, r // 2, r % 2),
+                  f"{grid}: rank {r} sits at {got['grid']}")
+        for name in jobs:
+            want = one[name]
+            r0 = ranks[grid][0][name]
+            nerf = name != "hologan"
+            rtol, atol = SP_TOL[name]
+            grad_worst = 0.0
+            for r, got in enumerate(x[name] for x in ranks[grid]):
+                differ = differing(got["state"], r0["state"])
+                check(not differ, f"{name} {grid}: rank {r} differs from "
+                      f"rank 0: {differ[:5]}")
+                check(got["launches"] == want["launches"],
+                      f"{name} {grid}: rank {r} launched {got['launches']},"
+                      f" one device {want['launches']}")
+                half = ([m // 2 for m in want["rows"]] if nerf
+                        else want["rows"])
+                check(got["rows"] == half, f"{name} {grid}: rank {r}'s "
+                      f"trunk rows {got['rows']}, one device "
+                      f"{want['rows']}")
+                g = got["grads"]
+                check(g["g"]["partial"] == nerf and not g["d"]["partial"],
+                      f"{name} {grid}: rank {r} marked G ray-partial "
+                      f"{g['g']['partial']}, D {g['d']['partial']}")
+                for side in ("d", "g"):
+                    w = want["grads"][side]["loss"]
+                    check(abs(g[side]["loss"] - w) <= atol + rtol * abs(w),
+                          f"{name} {grid}: rank {r}'s {side} loss "
+                          f"{g[side]['loss']}, one device {w}")
+                worst = grads_within(g, want["grads"])
+                check(worst <= 1.0, f"{name} {grid}: rank {r}'s reduced "
+                      f"gradients lie {worst:.3g} × 1e-3·max(1, max|g|) "
+                      f"from one device's")
+                grad_worst = max(grad_worst, worst)
+            check(not nerf or (r0["rows"] and all(
+                m * 2 == w for m, w in zip(r0["rows"], want["rows"]))),
+                  f"{name} {grid}: no trunk launch on half the rows")
+            got_m, want_m = r0["metrics"][0], want["metrics"][0]
+            check(set(got_m) == set(want_m),
+                  f"{name} {grid}: metric keys {sorted(got_m)}")
+            worst = {}
+            for k, v in want_m.items():
+                worst[k] = abs(got_m[k] - v)
+                check(math.isfinite(got_m[k])
+                      and abs(got_m[k] - v) <= atol + rtol * abs(v),
+                      f"{name} {grid}: {k} {got_m[k]}, one device {v}")
+            nets = ("generator", "discriminator")
+            param_worst = within({k: r0["state"][k] for k in nets},
+                                 {k: want["state"][k] for k in nets},
+                                 rtol, atol)
+            check(param_worst <= atol, f"{name} {grid}: a parameter lies "
+                  f"{param_worst} beyond rtol {rtol} from one device")
+            exact = not differing({k: r0["state"][k] for k in nets},
+                                  {k: want["state"][k] for k in nets})
+            steps = sorted(s for x in ranks[grid] for s in x[name]["step_s"])
+            m_rows = sorted(set(r0["rows"]))
+            print(f"ray sharding {grid} {name} ({jobs[name][2]}): "
+                  f"{r0['batch_rows']} rows per rank of "
+                  f"{want['batch_rows']}; {len(ranks[grid])} ranks "
+                  f"bit-identical; reduced loss gradients at the initial "
+                  f"parameters within {grad_worst:.3g} × 1e-3·max(1, "
+                  f"max|g|) of one device's (worst leaf and rank; losses "
+                  f"d {r0['grads']['d']['loss']} g "
+                  f"{r0['grads']['g']['loss']} vs "
+                  f"{want['grads']['d']['loss']} "
+                  f"{want['grads']['g']['loss']}); superstep metrics "
+                  f"{got_m} vs one device {want_m} (|diff| {worst}); "
+                  f"parameters within rtol {rtol} + {param_worst:.3g} "
+                  f"(atol {atol}), bit-identical to one device: {exact}; "
+                  f"launches per rank {r0['launches']} (one device "
+                  f"{want['launches']}); trunk rows M per launch "
+                  f"{m_rows} (one device {sorted(set(want['rows']))}); "
+                  f"bytes per rank and superstep by collective/group "
+                  f"{ {k: int(v) for k, v in sorted(r0['sent'].items())} }; "
+                  f"{steps[len(steps) // 2]:.3f} s per "
+                  f"superstep per rank vs {sorted(want['step_s'])[0]:.3f} "
+                  f"s on one device (host clock, median of {len(steps)}; "
+                  f"min of {SP_TIMED})")
+            paths[f"{name}_sp_{grid}_{jobs[name][2]}"] = r0["launches"]
+    print(f"ray sharding: 1 × 2 on two gloo ranks on {device} "
+          f"{walls['1x2']:.1f} s, 2 × 2 on four {walls['2x2']:.1f} s from "
+          f"spawn to exit; {card_line()}")
+    return paths
 
 
 def differing(a, b, where="") -> list:
@@ -2258,7 +2559,8 @@ def main() -> int:
                         ("data_parallel", data_parallel_phase),
                         ("yardsticks", yardsticks_phase),
                         ("sharding", lambda: sharding_phase(
-                            extras["data_parallel"]["per_rank"], data))):
+                            extras["data_parallel"]["per_rank"], data)),
+                        ("ray_sharding", lambda: ray_sharding_phase(data))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         extras[name] = phase()
@@ -2278,6 +2580,9 @@ def main() -> int:
                       extras["sharding"]["hologan_nccl_1rank"],
                   **{f"{k}_per_rank": v for k, v in extras["sharding"].items()
                      if k.startswith("hologan_gloo")},
+                  "hologan_sp_1x2_idle_per_rank":
+                      extras["ray_sharding"]["hologan_sp_1x2_plain"][
+                          "trilinear"],
                   "hologan_shapes_score":
                       extras["yardsticks"]["trilinear"]}
     trunk_paths = {"pigan": trunk_launches, "anigan": anigan_launches,
@@ -2289,6 +2594,9 @@ def main() -> int:
                    **{f"{k}_per_rank": v
                       for k, v in extras["sharding"].items()
                       if k.startswith("pigan_gloo")},
+                   **{f"{k}_per_rank": v["siren_trunk"]
+                      for k, v in extras["ray_sharding"].items()
+                      if not k.startswith("hologan")},
                    "pigan_yardstick_width48":
                        extras["yardsticks"]["siren_trunk"]}
     kernels = [

@@ -161,9 +161,9 @@ class BatchNorm2d(nn.Module):
         batch statistics without touching the buffers, as a flax apply with
         ``mutable=False``;
       * eval mode normalises with the running statistics;
-      * on more than one rank the training-mode statistics are those of the
-        global batch (the JAX package's sharded BatchNorm), in frozen_stats
-        too; see ``_global_batch_norm``.
+      * on more than one data rank the training-mode statistics are those
+        of the global batch (the JAX package's sharded BatchNorm), in
+        frozen_stats too; see ``_global_batch_norm``.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -180,7 +180,7 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        if dist.world_size() > 1:
+        if dist.data_size() > 1:
             return self._global_batch_norm(x)
         if self.update_stats:
             with torch.no_grad():
@@ -200,10 +200,11 @@ class BatchNorm2d(nn.Module):
         against its spread, and the two-pass form is what the one-device
         path computes. The sums are ``dist.all_reduce_sum``, so first- and
         second-order gradients (the penalties' autograd.grad with
-        create_graph) cross the ranks. Every rank has the same rows, so
-        the count is the local one times the world size."""
+        create_graph) cross the ranks. The sums run over the data ranks
+        (the sp ranks of a data group hold the same rows), each with the
+        same rows, so the count is the local one times the data ranks."""
         x32 = x.float()
-        n = x32.numel() // x32.shape[1] * dist.world_size()
+        n = x32.numel() // x32.shape[1] * dist.data_size()
         mean = dist.all_reduce_sum(x32.sum(dim=(0, 2, 3))) / n
         centred = x32 - mean[:, None, None]
         var = dist.all_reduce_sum(centred.square().sum(dim=(0, 2, 3))) / n

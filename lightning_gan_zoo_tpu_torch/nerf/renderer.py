@@ -9,7 +9,22 @@ chunks by a plain loop. Stratified depth jitter and fine-pass sampling draw
 from explicit ``torch.Generator``s. ANIGAN's field (``single_shape``) takes
 a deformer, and the deformation inputs pass through both passes to it. ``torch.sort`` orders the fine depths
 (the JAX package's gather-gradient sort was a TPU workaround; the depths
-carry no gradient). Ray sharding over devices (``num_sp``) is not ported.
+carry no gradient).
+
+Ray sharding (``num_sp`` > 1; the JAX renderer's ``shard_rays`` /
+``unshard_rays``): inside a training step, when sp divides the ray count
+(``dist.shards_rays``), sp rank s renders rays [s·N/sp, (s+1)·N/sp) of its
+data rows, everything per ray (the field, the raymarch, ``sample_pdf``,
+the sort, the fine pass) on those rays alone, and the fine RGBA goes back
+to the whole image through the sp all-gather (``dist.all_gather_rays``),
+whose backward hands each rank the gradient of its own rays. The per-ray
+uniforms are the one-device draws for the global rows and every ray, of
+which the rank keeps its rows and rays: the stratified jitter in one draw,
+the fine samples chunk by chunk of the one-device chunk grid (a rank's
+rays do not line up with the chunks, so it replays the grid, drawing each
+chunk's uniforms in order and keeping their overlap with its rays). The
+streams then stay the same on every rank. Evaluation (validation, the
+figures, ``generate``, serving) renders every ray, as without the axis.
 
 ``remat`` (``nerf.remat``) runs each field evaluation that records
 gradients under ``torch.utils.checkpoint`` (non-reentrant): its activations
@@ -27,8 +42,9 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..parallel import dist
 from .cameras import OrthographicCameras, world_rays_from_ndc
-from .sampling import sample_pdf, stratify_depths
+from .sampling import draw_uniform, sample_pdf, stratify_depths
 from .siren import SirenRadianceField, SirenSingleShape
 
 
@@ -152,8 +168,10 @@ class RadianceFieldRenderer(nn.Module):
             preserve_rng_state=False)
 
     def _render_core(self, origins, dirs_n, depths, z, stratify: bool,
-                     fine_generator, field_kw):
-        """Coarse + fine render of one set of rays → (B, N, 4) fine RGBA."""
+                     fine_generator, field_kw, fine_u=None):
+        """Coarse + fine render of one set of rays → (B, N, 4) fine RGBA;
+        the fine samples' uniforms are ``fine_u`` where given, else drawn
+        from ``fine_generator``."""
         with torch.no_grad():
             pts = origins[:, :, None] + depths[..., None] * dirs_n[:, :, None]
             dens_c, cols_c = self._field(pts, dirs_n, z, field_kw)
@@ -162,7 +180,7 @@ class RadianceFieldRenderer(nn.Module):
             mids = 0.5 * (depths[..., 1:] + depths[..., :-1])
             z_samples = sample_pdf(mids, weights_c[..., 1:-1], self.n_fine,
                                    det=not stratify,
-                                   generator=fine_generator)
+                                   generator=fine_generator, u=fine_u)
             depths_f = torch.sort(torch.cat([depths, z_samples], -1),
                                   dim=-1).values
         pts_f = origins[:, :, None] + depths_f[..., None] * dirs_n[:, :, None]
@@ -178,27 +196,55 @@ class RadianceFieldRenderer(nn.Module):
         """rays_xy (B, H, W, 2) or (B, N, 2) NDC → (B, H, W, 4) or (B, N, 4)
         fine RGBA. Stratified sampling (training, or ``stratified_test``)
         draws from the two generators; ``field_kw`` (the deformation inputs)
-        go to the field in both passes."""
+        go to the field in both passes. In a training step on an sp grid
+        this rank renders its share of the rays and the image is gathered
+        (see the module's docstring)."""
         b = z.shape[0]
         spatial = rays_xy.shape[1:-1]
         xy = rays_xy.reshape(b, -1, 2).float()
         n_rays = xy.shape[1]
+        sharded = train and dist.shards_rays(n_rays)
+        rays = dist.ray_slice(n_rays) if sharded else slice(0, n_rays)
+        xy = xy[:, rays]
         with torch.autocast(xy.device.type, enabled=False):
             origins, directions = world_rays_from_ndc(cameras, xy)
             dirs_n = directions / torch.clamp(torch.linalg.vector_norm(
                 directions, dim=-1, keepdim=True), min=1e-12)
             depths = torch.linspace(self.min_depth, self.max_depth,
                                     self.n_pts, device=xy.device)
-            depths = depths.expand(b, n_rays, self.n_pts)
+            depths = depths.expand(b, xy.shape[1], self.n_pts)
             stratify = (self.stratified and train) or \
                 (self.stratified_test and not train)
             if stratify:
-                depths = stratify_depths(depths, generator=depth_generator)
+                u = draw_uniform((b, n_rays, self.n_pts), depth_generator,
+                                 depths)
+                depths = stratify_depths(depths, u=u[:, rays])
         chunk = self.chunk_size if 0 < self.chunk_size < n_rays else n_rays
-        rgba = torch.cat([
-            self._render_core(origins[:, lo:lo + chunk],
-                              dirs_n[:, lo:lo + chunk],
-                              depths[:, lo:lo + chunk], z, stratify,
-                              fine_generator, field_kw)
-            for lo in range(0, n_rays, chunk)], dim=1)
+        rgba = self._render_rays(origins, dirs_n, depths, z, stratify,
+                                 fine_generator, field_kw, rays, chunk,
+                                 n_rays)
+        if sharded:
+            rgba = dist.all_gather_rays(rgba, dim=1)
         return rgba.reshape((b,) + spatial + (4,))
+
+    def _render_rays(self, origins, dirs_n, depths, z, stratify,
+                     fine_generator, field_kw, rays: slice, chunk: int,
+                     n_rays: int) -> torch.Tensor:
+        """The rays ``rays`` of ``n_rays`` (``origins``, ``dirs_n`` and
+        ``depths`` hold them alone: every ray, or an sp rank's share) over
+        the one-device chunk grid: each chunk's fine uniforms drawn in
+        order, the render of its overlap with ``rays``."""
+        b, parts = origins.shape[0], []
+        for lo in range(0, n_rays, chunk):
+            hi = min(lo + chunk, n_rays)
+            u = (draw_uniform((b, hi - lo, self.n_fine), fine_generator,
+                              depths) if stratify else None)
+            first, last = max(lo, rays.start), min(hi, rays.stop)
+            if first >= last:
+                continue
+            mine = slice(first - rays.start, last - rays.start)
+            parts.append(self._render_core(
+                origins[:, mine], dirs_n[:, mine], depths[:, mine], z,
+                stratify, fine_generator, field_kw,
+                fine_u=None if u is None else u[:, first - lo:last - lo]))
+        return torch.cat(parts, dim=1)

@@ -3,8 +3,9 @@ sampling.py).
 
 Every random function takes an explicit ``torch.Generator`` or, in its
 place, the tensor of uniform draws itself, so that a test can feed it the
-draws the JAX package made. The batch axis leads every draw
-(``parallel.dist.draw_rows`` slices it).
+draws the JAX package made, and a ray-sharded render its slice of the
+one-device draws (``draw_uniform``, nerf/renderer.py). The batch axis
+leads every draw (``parallel.dist.draw_rows`` slices it).
 """
 from __future__ import annotations
 
@@ -16,6 +17,17 @@ from ..ops.grid_sample import bilinear_sample
 from ..parallel.dist import draw_rows
 
 
+def draw_uniform(shape, generator: torch.Generator,
+                 like: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) draws of ``shape`` in ``like``'s dtype and device, whose
+    leading axis holds this rank's rows (``draw_rows``)."""
+    if generator is None:
+        raise ValueError("pass a torch.Generator or the uniform draws")
+    return draw_rows(lambda m: torch.rand(
+        (m, *shape[1:]), generator=generator, device=like.device,
+        dtype=like.dtype), shape[0])
+
+
 def _uniform(shape, generator: Optional[torch.Generator],
              u: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
     if u is not None:
@@ -23,11 +35,7 @@ def _uniform(shape, generator: Optional[torch.Generator],
             raise ValueError(f"uniform draws of shape {tuple(u.shape)}, "
                              f"expected {tuple(shape)}")
         return u.to(device=like.device, dtype=like.dtype)
-    if generator is None:
-        raise ValueError("pass a torch.Generator or the uniform draws")
-    return draw_rows(lambda m: torch.rand(
-        (m, *shape[1:]), generator=generator, device=like.device,
-        dtype=like.dtype), shape[0])
+    return draw_uniform(shape, generator, like)
 
 
 def sample_full_xys(batch_size: int, img_size: int, device=None

@@ -219,7 +219,10 @@ class SirenSingleShape(nn.Module):
     Without deformation inputs the field reads uniform noise in place of the
     deformed points, drawn from ``deform_generator`` (the reference draws
     ``torch.rand``), or made by ``deform_noise(shape)`` where one is given
-    (the serving program's seeded draw)."""
+    (the serving program's seeded draw). A training step always passes the
+    batch's shape analyses (tasks/nerf_gan.py), so the noise is drawn only
+    in evaluation, where every ray is rendered: it is never a ray-sharded
+    draw."""
 
     def __init__(self, latent_z_dim: int, num_layers: int, dim_hidden: int,
                  deformer: Optional[nn.Module] = None, input_channels: int = 3,

@@ -4,13 +4,13 @@ mesh.py's ``_zero_leaf_spec``, ``opt_shardings``, ``state_shardings`` and
 ``gather_tree``.
 
 The leaf rule is the JAX package's. A parameter leaf is sharded over the
-ranks iff its flax trailing extent divides by the world size; a 0-d leaf
-stays whole, and there is no floor on the data factor (mesh.py: "unlike
-params there is no lane floor"). Rank r holds the r-th of ``world`` equal
-contiguous blocks of that axis. ``zero_opt`` applies the rule to the
-optimizer's state (Adam's moments, SGD's trace, RMSprop's ν and trace);
-``fsdp`` also to the parameters and the EMA twin, and implies ``zero_opt``.
-Buffers (BatchNorm statistics, the spectral norm's u), counters and the
+data ranks iff its flax trailing extent divides by their number; a 0-d
+leaf stays whole, and there is no floor on the data factor (mesh.py:
+"unlike params there is no lane floor"). Data rank d holds the d-th of
+those equal contiguous blocks of that axis. ``zero_opt`` applies the rule
+to the optimizer's state (Adam's moments, SGD's trace, RMSprop's ν and
+trace); ``fsdp`` also to the parameters and the EMA twin, and implies
+``zero_opt``. Buffers (BatchNorm statistics, the spectral norm's u), counters and the
 task's extra state stay whole on every rank, as the JAX package replicates
 them.
 
@@ -29,6 +29,14 @@ updated blocks back into the full parameters the next micro-step reads.
 Under ``fsdp`` the full parameters exist only while they are in use: their
 storage is freed between supersteps (``release``) and gathered again into
 the same tensors (``materialize``), so the modules' references stay valid.
+
+On a data × sp grid (``num_sp``) the rule shards over the data axis
+alone, as the JAX rule does (``opt_shardings`` takes ``mesh.shape['data']``):
+the sp ranks of a data group hold the same blocks, the gathers and
+reduce-scatters run in the data group, and a generator whose gradient is a
+partial sum over each sp rank's rays has it summed over the sp group
+before the reduce-scatter (as every gradient is: ``dist.average_grads``).
+At one data rank nothing is sharded (the JAX rule's ``data > 1``).
 
 Every function here that gathers is a collective: every rank calls it at
 the same point. A checkpoint holds the full state in the one-device
@@ -74,8 +82,8 @@ def flax_extent(module: nn.Module, param: torch.Tensor, dim: int) -> int:
 
 def sharded(extent: int, ndim: int, world: int, tp: int = 1) -> bool:
     """The leaf rule of ``_zero_leaf_spec``: the trailing axis is split over
-    the data ranks iff it divides by data × tp; a 0-d leaf stays whole.
-    Tensor parallelism (``num_tp``) is not ported: tp is 1."""
+    the ``world`` data ranks iff it divides by data × tp; a 0-d leaf stays
+    whole. Tensor parallelism (``num_tp``) is not ported: tp is 1."""
     if tp != 1:
         raise NotImplementedError("num_tp > 1 is not ported")
     return ndim > 0 and world > 1 and extent % (world * tp) == 0
@@ -103,11 +111,12 @@ class NetShards:
 
     def __init__(self, net: nn.Module, fsdp: bool,
                  world: Optional[int] = None, rank: Optional[int] = None):
-        """``world`` and ``rank`` default to the group's (given, the blocks
-        of that rank are cut without a group; nothing gathers then)."""
+        """``world`` and ``rank`` default to the group's data ranks and
+        this rank's data index (given, the blocks of that rank are cut
+        without a group; nothing gathers then)."""
         self.net, self.fsdp = net, fsdp
-        self.world = dist.world_size() if world is None else world
-        self.rank = dist.rank() if rank is None else rank
+        self.world = dist.data_size() if world is None else world
+        self.rank = dist.data_rank() if rank is None else rank
         owner = {}
         for mod_name, m in net.named_modules():
             for pn, p in m.named_parameters(recurse=False):
@@ -149,28 +158,32 @@ class NetShards:
         return out
 
     # ---------------------------------------------------------- update
-    def reduce_grads(self):
-        """Each gradient averaged over the ranks, a sharded leaf's into its
-        block's ``grad``: under zero_opt one flat all-reduce of every
+    def reduce_grads(self, ray_partial: bool = False):
+        """Each gradient reduced by ``dist.average_grads``'s rule (summed
+        over the sp group, averaged over the data group; ``ray_partial``:
+        each sp rank holds its rays' partial sum), a sharded leaf's into
+        its block's ``grad``: under zero_opt the flat all-reduces of every
         gradient there is, then this rank's blocks; under fsdp the sharded
-        leaves' gradients reduce-scattered and the whole ones all-reduced.
-        The full gradients of sharded leaves are dropped."""
+        leaves' gradients summed over the sp group and reduce-scattered
+        over the data group, and the whole ones all-reduced. The full
+        gradients of sharded leaves are dropped."""
         if not self.fsdp:
-            dist.average_grads(lf.param for lf in self.leaves)
+            dist.average_grads((lf.param for lf in self.leaves), ray_partial)
             for lf in self.sharded:
                 if lf.param.grad is not None:
                     lf.shard.grad = lf.block(lf.param.grad,
                                              self.rank).contiguous()
                     lf.param.grad = None
             return
-        dist.average_grads(lf.param for lf in self.leaves if lf.shard is None)
+        dist.average_grads((lf.param for lf in self.leaves
+                            if lf.shard is None), ray_partial)
         have = [lf for lf in self.sharded if lf.param.grad is not None]
         if not have:
             return
-        mine = dist.reduce_scatter_flat(torch.cat(
+        mine = dist.reduce_scatter_flat(dist.sum_over_sp(torch.cat(
             [lf.block(lf.param.grad, r).reshape(-1)
-             for r in range(self.world) for lf in have]))
-        mine.div_(self.world)
+             for r in range(self.world) for lf in have])))
+        mine.div_(dist.grad_divisor(ray_partial))
         for lf, g in zip(have, mine.split([lf.shard.numel() for lf in have])):
             lf.shard.grad = g.view_as(lf.shard)
             lf.param.grad = None
@@ -289,13 +302,14 @@ class NetShards:
 
 
 def gather_blocks(blocks: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
-    """Every rank's version of each of ``blocks`` (the same shapes on every
-    rank), in one flat all-gather: for each block, the list over ranks."""
+    """Every data rank's version of each of ``blocks`` (the same shapes on
+    every rank), in one flat all-gather in the data group: for each block,
+    the list over data ranks."""
     dtypes = {b.dtype for b in blocks}
     if len(dtypes) != 1:
         raise TypeError(f"one all-gather takes one dtype, not {dtypes}")
     flat = torch.cat([b.reshape(-1) for b in blocks])
-    per_rank = dist.all_gather_flat(flat).view(dist.world_size(), -1)
+    per_rank = dist.all_gather_flat(flat).view(dist.data_size(), -1)
     out, off = [], 0
     for b in blocks:
         n = b.numel()

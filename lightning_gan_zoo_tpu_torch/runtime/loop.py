@@ -73,9 +73,15 @@ Trainer. Where the full state leaves the superstep every rank gathers it
 at the same point (the JAX Trainer's ``gather_tree``): a checkpoint, the
 rescue, validation and its figures, ``eval_only``, ``debug.verbose_shape``
 and the end of ``fit``; a checkpoint is the full state in the one-device
-format, so it resumes at any world size with or without sharding. The
-other multi-device axes (``num_sp``, ``num_tp`` > 1) are not ported and
-raise NotImplementedError when switched on.
+format, so it resumes at any world size with or without sharding.
+``num_sp`` > 1 makes the ranks a data × sp grid (parallel/dist.py): the
+batch contract above holds over the data ranks (the loader's stripes, the
+supersteps per epoch, the fold's clamp), the sp ranks of a data group
+hold the same rows, and π-GAN's and ANIGAN's renderers split every
+image's rays over them in the training step (nerf/renderer.py); the
+2D families and HoloGAN leave the axis idle. The state shards over the
+data ranks alone. ``num_tp`` > 1 is not ported and raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -112,7 +118,7 @@ PREEMPT_SYNC_EVERY = 8
 def check_ported(cfg: Config):
     """Raise NotImplementedError naming the switched-on config features
     this package cannot run yet."""
-    found = [f"{key} > 1 (multi-device)" for key in ("num_sp", "num_tp")
+    found = [f"{key} > 1 (multi-device)" for key in ("num_tp",)
              if int(cfg.get(key, 1) or 1) > 1]
     if found:
         raise NotImplementedError(
@@ -145,6 +151,12 @@ def _dataset_kwargs(cfg: Config) -> dict:
 class Trainer:
     def __init__(self, cfg: Config, device):
         check_ported(cfg)
+        sp = int(cfg.get("num_sp", 1) or 1)
+        if sp != dist.sp_size():
+            raise ValueError(f"num_sp={sp}, but this process's grid has "
+                             f"sp={dist.sp_size()} of {dist.world_size()} "
+                             "ranks (start the ranks with dist.launch or "
+                             "init with sp=num_sp)")
         self.device = torch.device(device)
         # Explicit, since cuDNN defaults to TF32 for float32 convolutions.
         # Under precision 16 the convolutions and matmuls run in bf16
@@ -243,8 +255,9 @@ class Trainer:
 
     def _rank_span(self, dataset_len: int, batch_size: int, accum: int):
         """(the rank's stripe of the dataset, the rows one superstep takes
-        from it), as the EpochLoader counts them."""
-        world = dist.world_size()
+        from it), as the EpochLoader counts them: the stripes are the data
+        ranks'."""
+        world = dist.data_size()
         local = max(batch_size // world, 1)
         return (dataset_len // world,
                 local * microbatch_count(self.disc_freq, self.gen_freq, accum))
@@ -298,8 +311,8 @@ class Trainer:
         n_micro = microbatch_count(self.disc_freq, self.gen_freq, accum)
         return EpochLoader(ds, self.current_batch_size,
                            n_micro=n_micro * self._active_fold,
-                           seed=self.seed, process_index=dist.rank(),
-                           process_count=dist.world_size())
+                           seed=self.seed, process_index=dist.data_rank(),
+                           process_count=dist.data_size())
 
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:

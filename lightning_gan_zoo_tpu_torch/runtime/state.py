@@ -58,8 +58,8 @@ def create_train_state(task, steps_per_epoch: int,
                        ema: bool = False, zero_opt: bool = False,
                        fsdp: bool = False) -> TrainState:
     """The state of a fresh run. ``zero_opt`` and ``fsdp`` (which implies
-    it) shard it over the ranks of the group; on one rank they do nothing,
-    as in the JAX Trainer."""
+    it) shard it over the data ranks of the group; on one data rank they
+    do nothing, as in the JAX Trainer (its leaf rule's ``data > 1``)."""
     d_opt, d_sched, g_opt, g_sched = task.configure_optimizers(
         steps_per_epoch, epoch_supersteps=epoch_supersteps)
     g_ema = ({n: p.detach().clone()
@@ -67,7 +67,7 @@ def create_train_state(task, steps_per_epoch: int,
     state = TrainState(d_opt=d_opt, g_opt=g_opt, d_schedule=d_sched,
                        g_schedule=g_sched, extra=task.initial_extra(),
                        g_ema=g_ema)
-    if (zero_opt or fsdp) and dist.world_size() > 1:
+    if (zero_opt or fsdp) and dist.data_size() > 1:
         state.sharding = StateSharding(task, state, fsdp=fsdp)
     return state
 

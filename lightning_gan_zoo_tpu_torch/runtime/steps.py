@@ -15,8 +15,18 @@ as optax updates every leaf.
 
 In a process group (parallel/dist.py) each rank passes its rows of the
 global batch; every random draw is the global batch's (``global_draws``),
-each phase's gradients are averaged over the ranks before the optimizer
-steps, and so are the metrics. The clip, the EMA, the extra state and the
+each phase's gradients are averaged over the data ranks before the
+optimizer steps, and so are the metrics. On a data × sp grid every
+gradient is summed over the sp group before the mean over the data group
+(``dist.average_grads``). A NeRF generator's gradients are partial sums
+over each sp rank's rays (its render was ray-sharded:
+``dist.take_ray_partial``), and their sum is the gradient; a net whose
+gradient every sp rank holds whole (D, whose inputs are the gathered
+image, and every net of a family without a renderer) has sp times it,
+divided back. This is the JAX package's ``kernel_sharding._reduce_axes``:
+a partial sum is reduced over the axes that shard its inputs; the sum of
+the whole copies keeps them identical where cuDNN's kernels do not fix
+their summation order. The clip, the EMA, the extra state and the
 counters are the same arithmetic on every rank. The collectives are
 explicit rather than torch's DistributedDataParallel, whose reducer expects
 one fixed set of parameters per backward: the phases toggle
@@ -101,6 +111,7 @@ def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
         other.requires_grad_(False)
         for _ in range(freq):
             net.zero_grad(set_to_none=True)
+            dist.take_ray_partial()
             for _a in range(accum):
                 micro = map_batch(lambda v: v[i], batches)
                 if task.clips_disc:
@@ -115,11 +126,12 @@ def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
                     counts[k] = counts.get(k, 0) + 1
+            ray_partial = dist.take_ray_partial()
             if shards is None:
-                dist.average_grads(net.parameters())
+                dist.average_grads(net.parameters(), ray_partial)
                 fill_missing_grads(net)
             else:
-                shards.reduce_grads()
+                shards.reduce_grads(ray_partial)
                 shards.fill_missing_grads()
                 shards.pull()
             if is_disc:

@@ -27,8 +27,13 @@ and the exit code is non-zero when any rank fails. Under torchrun
 ``zero_opt=true`` (ZeRO-1: each rank holds its blocks of the optimizer
 state) and ``fsdp=true`` (ZeRO-3: of the parameters and the EMA twin too)
 shard the state over those ranks by the JAX package's leaf rule; on one
-rank they do nothing. The other multi-device axes (``num_sp``, ``num_tp``
-> 1) fail with a "not yet ported" error.
+rank they do nothing. ``num_sp=S`` (ray sharding) makes the ranks a grid
+of N/S data ranks × S ray ranks (S must divide N, and under torchrun the
+ranks of one node, LOCAL_WORLD_SIZE): the batch splits over the data
+ranks, and π-GAN's and ANIGAN's training renders split every image's rays
+over the S ranks of a data group; the run prints its grid, e.g.
+``[dist] grid data=1 × sp=2``. ``num_tp`` > 1 fails with a "not yet
+ported" error.
 """
 from __future__ import annotations
 
@@ -97,16 +102,28 @@ def main(argv=None) -> int:
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    sp = int(cfg.get("num_sp", 1) or 1)
     if "WORLD_SIZE" in os.environ:            # a torchrun rank
-        device = dist.init_from_env(device)
+        try:
+            device = dist.init_from_env(device, sp=sp)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
         print(f"[dist] rank {dist.rank()} of {dist.world_size()}, backend "
               f"{torch.distributed.get_backend()}, {device}", flush=True)
+        if sp > 1 and dist.is_main_process():
+            print(_grid_line(dist.world_size(), sp), flush=True)
         try:
             return _run_rank(device, cfg)
         finally:
             dist.shutdown()
     n = int(cfg.get("num_gpus", 1) or 1)
     devices = dist.rank_devices(device, n) if n > 1 else [device]
+    try:
+        dist.check_grid(len(devices), sp)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     if len(devices) == 1:
         if n > 1:
             print(f"[dist] num_gpus={n}: world size 1 ({devices[0]}), no "
@@ -115,13 +132,15 @@ def main(argv=None) -> int:
     print(f"[dist] num_gpus={n}: world size {len(devices)}, backend "
           f"{dist.backend_for(device)}, devices {', '.join(devices)}",
           flush=True)
+    if sp > 1:
+        print(_grid_line(len(devices), sp), flush=True)
     if torch.device(device).type == "cuda":
         # once here, not N times at once in the ranks
         from lightning_gan_zoo_tpu_torch.ops.cuda.build import build_library
         build_library()
     import torch.multiprocessing as mp
     try:
-        dist.launch(_run_rank, (cfg,), devices)
+        dist.launch(_run_rank, (cfg,), devices, sp=sp)
     except mp.ProcessExitedException as e:
         print(f"error: rank {e.error_index} exited with code {e.exit_code}",
               file=sys.stderr)
@@ -130,6 +149,10 @@ def main(argv=None) -> int:
         print(f"error: rank {e.error_index} failed:\n{e}", file=sys.stderr)
         return 1
     return 0
+
+
+def _grid_line(world: int, sp: int) -> str:
+    return f"[dist] grid data={world // sp} × sp={sp}"
 
 
 def _run_rank(device, cfg) -> int:

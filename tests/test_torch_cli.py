@@ -2,8 +2,9 @@
 subprocess it trains HoloGAN, π-GAN, ANIGAN (with its figures) and the 2D
 families through the JAX package's conf tree (dc_gan with a checkpoint and
 a resume from it, also on two gloo ranks with num_gpus=2, and a SIGTERM
-rescue of a two-rank run) and loads no JAX module; in-process it refuses
-what it cannot run with a clear message."""
+rescue of a two-rank run), π-GAN on a grid of two ray-sharding ranks
+(num_sp=2) with a resume on one rank, and loads no JAX module; in-process
+it refuses what it cannot run with a clear message."""
 import json
 import os
 import re
@@ -103,15 +104,19 @@ def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
-    # zero_opt and fsdp are ported: beside an unported switch the refusal
-    # names that switch alone
-    pytest.param(["num_gpus=2", "zero_opt=true", "num_sp=2"], "num_sp",
-                 id="extra1-zero_opt"),
-    (["num_sp=2"], "num_sp"),
+    # zero_opt, fsdp and num_sp are ported: beside an unported switch the
+    # refusal names that switch alone
+    pytest.param(["num_gpus=2", "zero_opt=true", "num_sp=2", "num_tp=2"],
+                 "num_tp", id="extra1-zero_opt"),
+    # num_sp must divide the ranks (the JAX make_mesh rule)
+    pytest.param(["num_gpus=2", "num_sp=3"],
+                 "num_sp=3 x num_tp=1 does not divide the 2-device mesh",
+                 id="extra2-num_sp"),
     (["num_tp=2"], "num_tp"),
     pytest.param(["zero_opt=true", "num_tp=2"], "num_tp",
                  id="extra4-zero_opt=true"),
-    pytest.param(["fsdp=true", "num_sp=2"], "num_sp", id="extra5-fsdp=true"),
+    pytest.param(["num_gpus=2", "fsdp=true", "num_sp=2", "num_tp=2"],
+                 "num_tp", id="extra5-fsdp=true"),
 ])
 def test_cli_refuses_unported(extra, message, tmp_path, capsys):
     rc = run_network_torch.main(SMALL + extra + [f"output_root={tmp_path}",
@@ -278,6 +283,34 @@ def test_cli_dc_gan_on_two_ranks_checkpoints_and_resumes(tmp_path):
             assert re.search(rf"\b{k}=-?\d", epochs[0][1])
         assert [p.name for p in (tmp_path / "dc_gan" / f"r{n}" / "ckpts"
                                  ).iterdir()] == ["model_epoch-2"]
+
+
+def test_cli_pigan_on_two_sp_ranks_checkpoints_and_resumes(tmp_path):
+    """num_gpus=2 num_sp=2 on the CPU: a grid of one data rank × two ray
+    ranks trains π-GAN's first epoch (8 px, batch 4: each rank renders 32
+    of every image's 64 rays), prints its grid and leaves a checkpoint in
+    the one-device format, from which one rank resumes at epoch 1."""
+    args = [*PIGAN_SMALL, f"output_root={tmp_path}", "save_ckpts=True",
+            "--device", "cpu"]
+    first = _run_cli(args + ["num_gpus=2", "num_sp=2",
+                             "train.num_epochs=1"])
+    assert first.returncode == 0, first.stderr
+    assert "[dist] grid data=1 × sp=2" in first.stdout
+    epochs = re.findall(r"^epoch (\d) \[.*\] (.*)$", first.stdout, re.M)
+    assert [e for e, _ in epochs] == ["0"], first.stdout
+    for k in ("d_loss", "r1", "g_loss"):
+        assert re.search(rf"\b{k}=-?\d", epochs[0][1]), epochs[0][1]
+    assert "FOREIGN []" in first.stdout
+    ckpts = tmp_path / "pigan" / "version_0" / "ckpts"
+    assert [p.name for p in ckpts.iterdir()] == ["model_epoch-0"]
+    out = _run_cli(args + ["train.num_epochs=2", f"train.ckpt_dir={ckpts}",
+                           "version=one"])
+    assert out.returncode == 0, out.stderr
+    assert f"Resuming from {ckpts / 'model_epoch-0'} at epoch 1" \
+        in out.stdout
+    assert "[dist]" not in out.stdout
+    epochs = re.findall(r"^epoch (\d) \[.*\] (.*)$", out.stdout, re.M)
+    assert [e for e, _ in epochs] == ["1"], out.stdout
 
 
 def _sigterm_two_ranks(tmp_path, *extra) -> Path:

@@ -67,8 +67,9 @@ def family_batches(cfg, family: str, batch: int, seed: int = 0) -> dict:
 
 
 def rank_rows(batches: dict) -> dict:
-    """This rank's rows of stacked [n_micro, batch, ...] batches."""
-    w, r = dist.world_size(), dist.rank()
+    """This rank's rows of stacked [n_micro, batch, ...] batches: its data
+    group's (the sp ranks of a group hold the same rows)."""
+    w, r = dist.data_size(), dist.data_rank()
     b = next(iter(batches.values())).shape[1] // w
     return map_batch(lambda v: v[:, r * b:(r + 1) * b], batches)
 
@@ -80,8 +81,9 @@ def make_task(overrides, tmp):
 
 def loss_grads(task, micro: dict) -> dict:
     """D's then G's loss and parameter gradients at the task's current
-    parameters on one micro-batch (the rank's rows of it), each averaged
-    over the ranks."""
+    parameters on one micro-batch (the rank's rows of it), each reduced
+    over the ranks by the superstep's rule (the ray-partial mark read
+    after each backward and kept)."""
     out = {}
     extra = task.initial_extra()
     with dist.global_draws():
@@ -91,11 +93,13 @@ def loss_grads(task, micro: dict) -> dict:
             net.requires_grad_(True)
             other.requires_grad_(False)
             net.zero_grad(set_to_none=True)
+            dist.take_ray_partial()
             z = task.sample_z(micro["image"].shape[0])
             with task.autocast():
                 loss, _ = fn(micro, z, extra)
             loss.backward()
-            dist.average_grads(net.parameters())
+            out[f"{side}_partial"] = dist.take_ray_partial()
+            dist.average_grads(net.parameters(), out[f"{side}_partial"])
             out[f"{side}_loss"] = float(
                 dist.average_metrics({"loss": loss.detach()})["loss"])
             out[f"{side}_grads"] = {n: p.grad.clone() for n, p
@@ -152,17 +156,17 @@ def _rank_worker(device, out_dir: str, jobs) -> int:
     return 0
 
 
-def run_ranks(jobs, out_dir: Path, n: int = RANKS) -> list:
+def run_ranks(jobs, out_dir: Path, n: int = RANKS, sp: int = 1) -> list:
     """``jobs`` ((name, function, args) each, the functions at a module's
-    top level) on ``n`` gloo ranks of one group; every rank's results, by
-    name."""
+    top level) on ``n`` gloo ranks of one group, a grid of n/sp data ×
+    ``sp`` ray ranks; every rank's results, by name."""
     out_dir.mkdir(parents=True, exist_ok=True)
     old = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
                                           "MKL_NUM_THREADS")}
     os.environ.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     try:
         dist.launch(_rank_worker, (str(out_dir), jobs), ["cpu"] * n,
-                    backend="gloo")
+                    backend="gloo", sp=sp)
     finally:
         for k, v in old.items():
             if v is None:
