@@ -180,11 +180,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      gradients' sum over it and mean over the data group, fsdp's
      gathers), whether the state equals one device's bit for bit, and
      seconds per superstep per rank beside one device's.
+ 23. tensor parallelism (num_tp; parallel/tensor.py, the tp blocks of
+     parallel/sharding.py) at tp_min_shard 8, on gloo ranks on cuda:0
+     against one device under deterministic cuDNN, at full width:
+     HoloGAN (batch 32, 64 px), π-GAN (machine=small, 16 px, SIREN 256,
+     batch cut to 32) and gan_stability_r1 (128 px, batch 16) on 1 data
+     × 1 sp × 2 tp ranks, π-GAN on 1 × 2 × 2, dc_gan (batch 32) on
+     2 × 1 × 2 plainly and under fsdp. On every rank: the loss
+     gradients at the initial parameters after the reduction (blocks
+     gathered whole; float32 and PyTorch's convolutions on both sides)
+     against one device's, the losses within rtol 1e-4 and each leaf
+     within 1e-3 · max(1, max|g|); at least 4 leaves cut
+     per family; after one superstep the whole leaves and buffers
+     bit-identical on every rank, the metrics within DP_TOL of one device,
+     the one-device launch counts (the trilinear kernels on the whole
+     volume, the trunk on the gathered kernels: all its rows on 1 × 1 × 2,
+     half on 1 × 2 × 2), dc_gan under fsdp bit-identical to plain 2 × 1
+     × 2. Printed: each rank's held bytes beside one device's, the bytes
+     of each collective per superstep in the tp, sp and data groups, and
+     seconds per superstep per rank beside one device's.
 Phases 8–11 run the 2D families through run_network_torch.main() at their
 configs' full width (no TPU kernel lies on their path: cuDNN convolutions);
 each checks finite losses every epoch, every parameter and buffer on the
 card and the config's width, and prints each epoch's images/s.
-Each of phases 14–22 prints its seconds. The last lines are the card's
+Each of phases 14–23 prints its seconds. The last lines are the card's
 name and power limit, a JSON line describing
 each kernel (launches on the main paths and per superstep, error, time
 beside its plain version's and the library call's, and its bound from this
@@ -1849,6 +1868,7 @@ def shard_supersteps(name: str, argv, mode: str, device, sent: dict,
     from lightning_gan_zoo_tpu_torch.config import compose
     from lightning_gan_zoo_tpu_torch.config.registry import instantiate
     from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as ct
+    from lightning_gan_zoo_tpu_torch.parallel import tensor
     from lightning_gan_zoo_tpu_torch.parallel.sharding import held_bytes
     from lightning_gan_zoo_tpu_torch.runtime.state import (
         create_train_state, full_state)
@@ -1860,8 +1880,10 @@ def shard_supersteps(name: str, argv, mode: str, device, sent: dict,
     ema = SHARD_EMA.get(name, 0.0)
     state = create_train_state(task, steps_per_epoch=4, ema=ema > 0,
                                zero_opt=mode != "plain",
-                               fsdp=mode == "fsdp")
-    check((state.sharding is not None) == (mode != "plain"),
+                               fsdp=mode == "fsdp",
+                               tp_min_shard=int(cfg.get("tp_min_shard", 8)))
+    tp = state.sharding.tp if state.sharding is not None else None
+    check((state.sharding is not None) == (mode != "plain" or tp is not None),
           f"{name} {mode}: sharding {state.sharding}")
     rows, trunk = [], ct.siren_trunk
 
@@ -1874,15 +1896,24 @@ def shard_supersteps(name: str, argv, mode: str, device, sent: dict,
         torch.cuda.synchronize(device)
         reset_counts()
         sent.clear()
+        t0 = time.perf_counter()
         metrics = [superstep(task, state, batches, df, gf, ema_decay=ema)
                    for _ in range(steps)]
         torch.cuda.synchronize(device)
+        checked_s = (time.perf_counter() - t0) / steps
     finally:
         ct.siren_trunk = trunk
-    out = {"launches": read_counts(), "rows": rows,
+    out = {"launches": read_counts(), "rows": rows, "checked_s": checked_s,
            "batch_rows": int(batches["image"].shape[1]),
            "sent": {k: v / steps for k, v in sent.items()},
-           "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
+           "metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+           "cut": sum(len(t.leaves) for t in tp or ())}
+    if mode == "plain":             # what the rank holds whole (fsdp frees
+        out["whole"] = {            # its parameters between supersteps)
+            f"{n}.{k}": v.detach().cpu().clone()
+            for n, m in (("G", task.generator), ("D", task.discriminator))
+            for k, v in m.state_dict(keep_vars=True).items()
+            if not tensor.is_block(v)}
     for net in (task.generator, task.discriminator):
         net.zero_grad(set_to_none=True)
     gc.collect()
@@ -2066,11 +2097,13 @@ SP_TIMED = 2
 SP_OUT = REPO / "build" / "chip_smoke_output" / "ray_sharding"
 
 
-def sp_loss_grads(name: str, argv, device) -> dict:
+def sp_loss_grads(name: str, argv, device, native: bool = False) -> dict:
     """D's then G's loss and parameter gradients at the family's initial
     parameters on this rank's rows of micro-batch 0, each reduced by the
     superstep's rule (``dist.average_grads``, ray-partial where the render
-    was sharded), gathered to the CPU: the check of the ray-sharded
+    was sharded; on a tp grid on the tp blocks, gathered whole), gathered
+    to the CPU; with ``native`` the convolutions run PyTorch's own kernels
+    in place of cuDNN's. The check of the ray-sharded
     backward (Adam's first step moves a weight by about ±lr whatever its
     gradient's size, so the parameters after one superstep cannot tell a
     wrong gradient from a right one)."""
@@ -2078,12 +2111,16 @@ def sp_loss_grads(name: str, argv, device) -> dict:
     import torch
     from lightning_gan_zoo_tpu_torch.config import compose
     from lightning_gan_zoo_tpu_torch.config.registry import instantiate
-    from lightning_gan_zoo_tpu_torch.parallel import dist
+    from lightning_gan_zoo_tpu_torch.parallel import dist, tensor
+    from lightning_gan_zoo_tpu_torch.parallel.sharding import tensor_parallel
     from lightning_gan_zoo_tpu_torch.runtime.steps import map_batch
     cfg = compose(REPO / "conf", argv)
     task = instantiate(cfg.model.lm, cfg, str(SP_OUT), device=device)
+    tensor_parallel(task, int(cfg.get("tp_min_shard", 8) or 8))
     micro = map_batch(lambda v: v[0], shard_batches(name, cfg, task, device))
     extra, out = task.initial_extra(), {}
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = not native
     with dist.global_draws():
         for side, net, other, fn in (
                 ("d", task.discriminator, task.generator, task.disc_loss),
@@ -2098,12 +2135,18 @@ def sp_loss_grads(name: str, argv, device) -> dict:
             loss.backward()
             partial = dist.take_ray_partial()
             dist.average_grads(net.parameters(), partial)
+            have = [(n, p) for n, p in net.named_parameters()
+                    if p.grad is not None]
+            blocks = [(n, p) for n, p in have if tensor.is_block(p)]
+            whole = dict(zip((n for n, _ in blocks), tensor.gather_whole(
+                [p.grad for _, p in blocks], [p.tp_dim for _, p in blocks])))
             out[side] = {
                 "partial": partial,
                 "loss": float(dist.average_metrics(
                     {"loss": loss.detach()})["loss"]),
-                "grads": {n: p.grad.detach().cpu().clone() for n, p
-                          in net.named_parameters() if p.grad is not None}}
+                "grads": {n: whole.get(n, p.grad).detach().cpu().clone()
+                          for n, p in have}}
+    torch.backends.cudnn.enabled = cudnn
     del task, micro
     gc.collect()
     torch.cuda.empty_cache()
@@ -2123,23 +2166,30 @@ def grads_within(got: dict, want: dict) -> float:
     """The worst |got − want| / (1e-3 · max(1, max|want|)) over D's and
     G's gradient leaves (≤ 1 passes: tests/test_torch_sp.py's bound); a
     leaf one side lacks counts as zero there."""
+    return grad_errors(got, want)[0][0]
+
+
+def grad_errors(got: dict, want: dict) -> list:
+    """(|got − want| / (1e-3 · max(1, max|want|)), side, leaf, max|want|,
+    max|got − want|) for every gradient leaf, the worst first."""
     import torch
-    worst = 0.0
+    out = []
     for side in ("d", "g"):
         g, w = got[side]["grads"], want[side]["grads"]
         for k in set(g) | set(w):
             a = w.get(k, torch.zeros_like(g.get(k, torch.zeros(()))))
             b = g.get(k, torch.zeros_like(a))
             tol = 1e-3 * max(1.0, float(a.abs().max()))
-            worst = max(worst, float((b.double() - a.double()).abs().max())
-                        / tol)
-    return worst
+            diff = float((b.double() - a.double()).abs().max())
+            out.append((diff / tol, side, k, float(a.abs().max()), diff))
+    return sorted(out, reverse=True)
 
 
 def count_collectives(sent: dict):
     """torch.distributed's all_reduce, all_gather and reduce_scatter count
     the bytes they move (the full buffer of each) into ``sent``, by
-    operation and group: the sp group, the data group, or every rank."""
+    operation and group: the sp group, the tp group, the data group, or
+    every rank."""
     import torch.distributed as tdist
     from lightning_gan_zoo_tpu_torch.parallel import dist
 
@@ -2149,8 +2199,9 @@ def count_collectives(sent: dict):
     def counting(kind, fn, size):
         def counted(*args, **kwargs):
             group = kwargs.get("group")
-            where = ("sp" if group is not None and group is dist._SP_GROUP
-                     else "data" if group is not None else "world")
+            where = ("world" if group is None
+                     else "sp" if group is dist._SP_GROUP
+                     else "tp" if group is dist._TP_GROUP else "data")
             key = f"{kind}/{where}"
             sent[key] = sent.get(key, 0) + size(*args)
             return fn(*args, **kwargs)
@@ -2331,6 +2382,377 @@ def ray_sharding_phase(anigan_overrides: list, device: str = "cuda:0",
     print(f"ray sharding: 1 × 2 on two gloo ranks on {device} "
           f"{walls['1x2']:.1f} s, 2 × 2 on four {walls['2x2']:.1f} s from "
           f"spawn to exit; {card_line()}")
+    return paths
+
+
+#: full width, each at its config's batch (HoloGAN 32, π-GAN 128 at
+#: 16 px, R1 64, dc_gan 128)
+TP_FAMILIES = {"hologan": DP_FAMILIES["hologan"],
+               "pigan": DP_FAMILIES["pigan"],
+               "gan_stability_r1": SHARD_FAMILIES["gan_stability_r1"],
+               "dc_gan": DP_FAMILIES["dc_gan"]}
+#: the grids: name → (ranks, sp, {job key: (family, mode)}), tp 2 in each
+TP_GRIDS = {
+    "1x1x2": (2, 1, {n: (n, "plain")
+                     for n in ("hologan", "pigan", "gan_stability_r1")}),
+    "1x2x2": (4, 2, {"pigan": ("pigan", "plain")}),
+    "2x1x2": (4, 1, {"dc_gan": ("dc_gan", "plain"),
+                     "dc_gan_fsdp": ("dc_gan", "fsdp")}),
+}
+#: test_tp.py::test_tp_grads_match_replicated's loss tolerance
+TP_LOSS_RTOL = 1e-4
+#: the loss gradients are checked in float32: under the bf16 policy a
+#: GEMM or convolution with half the output columns may round an output
+#: one bf16 step apart (2⁻⁸), which moves π-GAN's G loss by ~2e-3
+TP_GRAD_ARGV = ["precision=32", "train.penalty_precision=32"]
+#: supersteps timed after the checked one, on each rank and on one device
+TP_TIMED = 1
+#: the family whose loss gradients are checked under its own bf16 policy
+#: too, where the fused SIREN trunk runs (the float32 check runs the layer
+#: loop: the trunk fuses only under bf16)
+TP_TRUNK_FAMILY = "pigan"
+#: under the bf16 policy each leaf's gradient is held within
+#: max(1, TP_BF16_SPREAD · s) × 1e-3 · max(1, max|g|) of one device's, s
+#: being one device's own bf16 spread in those units: its gradients with
+#: cuDNN's convolutions against those with PyTorch's (the same function,
+#: rounded elsewhere, as a tp rank's half-width GEMMs and convolutions are)
+TP_BF16_SPREAD = 2.0
+TP_OUT = REPO / "build" / "chip_smoke_output" / "tensor_parallel"
+
+
+def tp_trunk_check(argv, device, b: int, m: int) -> dict:
+    """π-GAN's fused SIREN trunk on this rank's tp blocks (its kernels and
+    biases gathered whole by ``tensor.whole`` and stacked, their gradients
+    cut back to the blocks by the gather's backward) at the main path's
+    shapes, ``b`` batch rows by ``m`` trunk rows, on seeded inputs, against
+    the trunk wrapper called on the whole weights in the same process. The
+    kernels are deterministic, so the output, dx, dγ, dβ, each leaf's
+    block gradient and every rank's blocks gathered whole must equal the
+    whole weights' bit for bit. Returns the parts that differ, the worst
+    |difference|, the leaves cut and the launches of the call on the
+    blocks."""
+    import gc
+    import torch
+    from lightning_gan_zoo_tpu_torch.config import compose
+    from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.nerf.siren import SirenNet
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as ct
+    from lightning_gan_zoo_tpu_torch.parallel import dist, tensor
+    from lightning_gan_zoo_tpu_torch.parallel.sharding import tensor_parallel
+    cfg = compose(REPO / "conf", argv)
+    task = instantiate(cfg.model.lm, cfg, str(TP_OUT), device=device)
+    tensor_parallel(task, int(cfg.get("tp_min_shard", 8) or 8))
+    net = next(x for x in task.generator.modules() if isinstance(x, SirenNet))
+    leaves = [p for lyr in net.layers for p in (lyr.kernel, lyr.bias)]
+    gen = torch.Generator(device).manual_seed(23)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    h, n_film = net.dim_hidden, len(net.layers) - 1
+    cin = net.layers[0].kernel.shape[0]
+    x, v = draw(b, m, cin), draw(b, m, h)
+    ins = [t.requires_grad_(True) for t in
+           (x, 1.0 + 0.1 * draw(b, n_film, h), 0.1 * draw(b, n_film, h))]
+    check(net.fuses(x), f"the trunk does not fuse at {tuple(x.shape)}")
+    cut = sum(tensor.is_block(p) for p in leaves)
+    reset_counts()
+    y = net(*ins)
+    got = torch.autograd.grad((y.float() * v).sum(), ins + leaves)
+    launches = read_counts()["siren_trunk"]
+    dims = [p.tp_dim if tensor.is_block(p) else 0 for p in leaves]
+    ws = [w.requires_grad_(True) for w in tensor.gather_whole(
+        [p.detach() for p in leaves], dims)] if cut == len(leaves) else []
+    check(ws, f"{cut} of the trunk's {len(leaves)} leaves cut over tp")
+    refs = [t.detach().clone().requires_grad_(True) for t in ins]
+    y_ref = ct.siren_trunk(refs[0], ws[0], torch.stack(ws[2::2]),
+                           torch.stack(ws[1::2]), refs[1], refs[2], net.w0s)
+    want = torch.autograd.grad((y_ref.float() * v).sum(), refs + ws)
+    gathered = tensor.gather_whole(list(got[3:]), dims)
+    pairs = [("y", y.detach(), y_ref.detach())] + list(zip(("dx", "dgamma", "dbeta"), got[:3],
+                                         want[:3]))
+    for i, (p, g, w, whole) in enumerate(zip(leaves, got[3:], want[3:],
+                                             gathered)):
+        name = f"layers.{i // 2}.{('kernel', 'bias')[i % 2]}"
+        n = p.shape[p.tp_dim]
+        pairs += [(f"{name} block", g, w.narrow(p.tp_dim,
+                                                dist.tp_rank() * n, n)),
+                  (f"{name} whole", whole, w)]
+    out = {"launches": launches, "leaves": cut,
+           "shape": (b, m, cin, h, len(net.layers)),
+           "differ": [k for k, a, w in pairs if not torch.equal(a, w)],
+           "worst": max(float((a.double() - w.double()).abs().max())
+                        for _, a, w in pairs)}
+    del task, net, leaves, y, y_ref, got, want, gathered, pairs, ws
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_job(name: str, argv, mode: str, device, sent: dict) -> dict:
+    """Phase 23's work for one family on one rank (or one device): the
+    loss gradients in float32 (TP_GRAD_ARGV) with PyTorch's convolutions;
+    for TP_TRUNK_FAMILY also under its own bf16 policy, with the trunk's
+    launches, and (on a tp rank) the trunk on its blocks against the whole
+    weights; then one checked superstep under ``mode`` and TP_TIMED timed
+    ones."""
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    out = {"grads": sp_loss_grads(name, argv + TP_GRAD_ARGV, device,
+                                  native=True)}
+    if name == TP_TRUNK_FAMILY:
+        reset_counts()
+        out["grads_bf16"] = sp_loss_grads(name, argv, device, native=True)
+        out["grads_bf16"]["launches"] = read_counts()["siren_trunk"]
+    out.update(shard_supersteps(name, argv, mode, device, sent, steps=1,
+                                timed=TP_TIMED))
+    if name == TP_TRUNK_FAMILY and dist.tp_size() > 1:
+        out["trunk"] = tp_trunk_check(argv, device, out["batch_rows"],
+                                      max(out["rows"]))
+    return out
+
+
+def tp_rank(device, out_dir: str, jobs: dict) -> int:
+    """Phase 23, one rank of a data × sp × tp grid: every job (key →
+    family, argv, mode) with its collectives' bytes counted; the results
+    into out_dir/rank<r>.pt."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sent = {}
+    count_collectives(sent)
+    with deterministic_cudnn():
+        results = {key: tp_job(name, argv, mode, device, sent)
+                   for key, (name, argv, mode) in jobs.items()}
+    results["grid"] = (dist.data_size(), dist.sp_size(), dist.tp_size(),
+                       dist.data_rank(), dist.sp_rank(), dist.tp_rank())
+    torch.save(results, Path(out_dir) / f"rank{dist.rank()}.pt")
+    return 0
+
+
+def is_trunk_leaf(name: str) -> bool:
+    """A kernel or bias of the SIREN trunk (not the rgb head's sine
+    layer)."""
+    return re.search(r"(^|\.)siren\.layers\.\d+\.(kernel|bias)$",
+                     name) is not None
+
+
+def tp_trunk_checks(key: str, grid: str, r: int, got: dict, want: dict,
+                    tol: float) -> dict:
+    """Rank r's trunk under bf16: the trunk on its blocks equal to the
+    whole weights' bit for bit, launched once each way, at the main path's
+    rows; its bf16 loss gradients, with the trunk launched as one device
+    launches it, each leaf within ``tol`` × 1e-3·max(1, max|g|) of one
+    device's and the losses within DP_TOL. Returns what it read."""
+    rtol, atol = DP_TOL[TP_TRUNK_FAMILY]
+    t = got["trunk"]
+    check(not t["differ"], f"{key} {grid}: rank {r}'s trunk on its blocks "
+          f"differs from the whole weights' in {t['differ']} (worst "
+          f"|diff| {t['worst']})")
+    check(t["launches"] == {"fwd": 1, "bwd": 1}, f"{key} {grid}: rank "
+          f"{r}'s trunk on its blocks launched {t['launches']}")
+    g = got["grads_bf16"]
+    check(g["launches"] == want["launches"], f"{key} {grid}: rank {r}'s "
+          f"bf16 gradients launched the trunk {g['launches']}, one device "
+          f"{want['launches']}")
+    for side in ("d", "g"):
+        w = want[side]["loss"]
+        check(abs(g[side]["loss"] - w) <= atol + rtol * abs(w),
+              f"{key} {grid}: rank {r}'s bf16 {side} loss "
+              f"{g[side]['loss']}, one device {w}")
+    errs = grad_errors(g, want)
+    check(errs[0][0] <= tol, f"{key} {grid}: rank {r}'s bf16 gradients lie "
+          f"{errs[0][0]:.3g} × 1e-3·max(1, max|g|) from one device's, "
+          f"beyond {tol:.3g}; the worst leaves (ratio, side, leaf, max|g|, "
+          f"max|diff|): {errs[:6]}")
+    trunk = [e for e in errs if is_trunk_leaf(e[2])]
+    check(len(trunk) == 2 * t["shape"][4], f"{key} {grid}: "
+          f"{len(trunk)} trunk leaves among the gradients")
+    return {"trunk_equal": True, "trunk_shape": t["shape"],
+            "trunk_leaves_cut": t["leaves"], "launches": g["launches"],
+            "losses": (g["d"]["loss"], g["g"]["loss"], want["d"]["loss"],
+                       want["g"]["loss"]),
+            "worst": errs[0][:3], "trunk_worst": trunk[0][:3],
+            "trunk_rel": trunk_rel(trunk)}
+
+
+def trunk_rel(errs: list) -> tuple:
+    """The largest max|diff| / max|g| among grad_errors' rows, and its
+    leaf."""
+    return max((e[4] / max(e[3], 1e-30), e[2]) for e in errs)
+
+
+def tensor_parallel_phase(device: str = "cuda:0"):
+    """TP_FAMILIES on the TP_GRIDS of gloo ranks sharing the card, against
+    one device on the whole batch, under deterministic cuDNN (phase 22's
+    reasons). First the loss gradients at the initial parameters, reduced
+    by the superstep's rule and the blocks gathered whole: the losses
+    within TP_LOSS_RTOL and each leaf within 1e-3 · max(1, max|g|) of one
+    device's, on every rank. That check runs in float32 (TP_GRAD_ARGV)
+    with PyTorch's own convolutions on both sides: cuDNN picks its
+    algorithm by shape, and a tp rank's convolution has half the output
+    channels; HoloGAN's float32 gradients (AdaIN at ε 1e-8) move by more
+    than the bound when one device merely swaps cuDNN's convolutions for
+    PyTorch's, which the phase prints. The float32 check runs π-GAN's
+    SIREN as its layer loop (the trunk fuses only under bf16), so π-GAN's
+    gradients are checked under its own bf16 policy too, the fused trunk
+    launched on every rank as on one device (tp_trunk_checks: within
+    TP_BF16_SPREAD times one device's own bf16 spread, and the trunk on
+    its blocks bit-identical to the whole weights' at the main path's
+    shapes). The superstep runs the configs' own policy with cuDNN. Then
+    one superstep from the seed: at least 4
+    leaves cut, every rank's whole leaves and buffers and the gathered
+    state bit-identical across the grid, dc_gan under fsdp bit-identical
+    to plain, the metrics within DP_TOL of one device, each rank's launches
+    the one-device count, every trunk launch on the one-device rows M
+    (half of them on the 1 × 2 × 2 grid). Printed per family: the
+    gradients' worst error against its bound, the held bytes per rank
+    beside one device's, the collectives' bytes per rank and superstep by
+    group, and seconds per superstep per rank beside one device's (the
+    TP_TIMED supersteps after the checked one)."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.parallel import dist
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    ranks, walls = {}, {}
+    for grid, (n, sp, jobs) in TP_GRIDS.items():
+        out = TP_OUT / grid
+        out.mkdir(parents=True)
+        t0 = time.perf_counter()
+        dist.launch(tp_rank, (str(out), {
+            key: (name, TP_FAMILIES[name], mode)
+            for key, (name, mode) in jobs.items()}), [device] * n,
+            backend="gloo", sp=sp, tp=2)
+        walls[grid] = time.perf_counter() - t0
+        print(f"tensor parallelism {grid}: {walls[grid]:.1f} s", flush=True)
+        ranks[grid] = [torch.load(out / f"rank{r}.pt", weights_only=False)
+                       for r in range(n)]
+    trunk_argv = TP_FAMILIES[TP_TRUNK_FAMILY]
+    with deterministic_cudnn():
+        one = {n: tp_job(n, argv, "plain", device, {})
+               for n, argv in TP_FAMILIES.items()}
+        # one device's own spread: cuDNN's convolutions against PyTorch's
+        spread = grad_errors(sp_loss_grads(
+            "hologan", TP_FAMILIES["hologan"] + TP_GRAD_ARGV, device),
+            one["hologan"]["grads"])
+        bf16_spread = grad_errors(
+            sp_loss_grads(TP_TRUNK_FAMILY, trunk_argv, device),
+            one[TP_TRUNK_FAMILY]["grads_bf16"])
+    want_bf16 = one[TP_TRUNK_FAMILY]["grads_bf16"]
+    check(min(want_bf16["launches"].values()) > 0, f"one device's bf16 "
+          f"gradients launched the trunk {want_bf16['launches']}")
+    bf16_tol = max(1.0, TP_BF16_SPREAD * bf16_spread[0][0])
+    trunk_spread = [e for e in bf16_spread if is_trunk_leaf(e[2])]
+    print(f"tensor parallelism: one device's {TP_TRUNK_FAMILY} loss "
+          f"gradients under bf16 with cuDNN lie {bf16_spread[0][0]:.3g} × "
+          f"1e-3·max(1, max|g|) from its gradients with PyTorch's "
+          f"convolutions (worst leaf {bf16_spread[0][1:]}; the trunk's "
+          f"worst {trunk_spread[0][0]:.3g}, leaf {trunk_spread[0][1:]}; "
+          f"its largest relative difference {trunk_rel(trunk_spread)}): "
+          f"the grids' bf16 gradients are held within {bf16_tol:.3g} of "
+          f"those units", flush=True)
+    paths = {}
+    for grid, (n, sp, jobs) in TP_GRIDS.items():
+        data = n // (2 * sp)
+        for r, got in enumerate(ranks[grid]):
+            want_at = (data, sp, 2, r // (2 * sp), (r // 2) % sp, r % 2)
+            check(got["grid"] == want_at,
+                  f"{grid}: rank {r} sits at {got['grid']}")
+        for key, (name, mode) in jobs.items():
+            want = one[name]
+            r0 = ranks[grid][0][key]
+            rtol, atol = DP_TOL.get(name, DP_TOL["dc_gan"])
+            grad_worst, loss_worst, bf16 = 0.0, 0.0, {}
+            for r, got in enumerate(x[key] for x in ranks[grid]):
+                differ = differing(got["state"], r0["state"])
+                check(not differ, f"{key} {grid}: rank {r} differs from "
+                      f"rank 0: {differ[:5]}")
+                if mode == "plain":
+                    differ = differing(got["whole"], r0["whole"])
+                    check(not differ, f"{key} {grid}: rank {r}'s whole "
+                          f"leaves differ from rank 0's: {differ[:5]}")
+                check(got["cut"] >= 4, f"{key} {grid}: {got['cut']} leaves "
+                      "cut over tp")
+                check(got["launches"] == want["launches"],
+                      f"{key} {grid}: rank {r} launched {got['launches']},"
+                      f" one device {want['launches']}")
+                rows = [m // sp for m in want["rows"]]
+                check(got["rows"] == rows, f"{key} {grid}: rank {r}'s "
+                      f"trunk rows {got['rows']}, one device "
+                      f"{want['rows']}")
+                g = got["grads"]
+                for side in ("d", "g"):
+                    w = want["grads"][side]["loss"]
+                    err = abs(g[side]["loss"] - w) / max(abs(w), 1e-30)
+                    loss_worst = max(loss_worst, err)
+                    check(err <= TP_LOSS_RTOL, f"{key} {grid}: rank {r}'s "
+                          f"{side} loss {g[side]['loss']}, one device {w}")
+                errs = grad_errors(g, want["grads"])
+                worst = errs[0][0]
+                check(worst <= 1.0, f"{key} {grid}: rank {r}'s reduced "
+                      f"gradients lie {worst:.3g} × 1e-3·max(1, max|g|) "
+                      f"from one device's; the worst leaves (ratio, side, "
+                      f"leaf, max|g|, max|diff|): {errs[:6]}")
+                grad_worst = max(grad_worst, worst)
+                if name == TP_TRUNK_FAMILY:
+                    bf16[r] = tp_trunk_checks(key, grid, r, got, want_bf16,
+                                              bf16_tol)
+            if mode != "plain":
+                plain = [k for k, (f, m) in jobs.items()
+                         if f == name and m == "plain"][0]
+                for r, x in enumerate(ranks[grid]):
+                    differ = differing(x[key]["state"], x[plain]["state"])
+                    check(not differ and x[key]["metrics"]
+                          == x[plain]["metrics"], f"{key} {grid}: rank {r} "
+                          f"differs from plain: {differ[:5]}")
+            got_m, want_m = r0["metrics"][0], want["metrics"][0]
+            check(set(got_m) == set(want_m),
+                  f"{key} {grid}: metric keys {sorted(got_m)}")
+            for k, v in want_m.items():
+                check(math.isfinite(got_m[k])
+                      and abs(got_m[k] - v) <= atol + rtol * abs(v),
+                      f"{key} {grid}: {k} {got_m[k]}, one device {v}")
+            if bf16:
+                print(f"tensor parallelism {grid} {key}: under bf16 (the "
+                      f"fused trunk) per rank, the trunk on its blocks "
+                      f"against the whole weights and the reduced loss "
+                      f"gradients against one device's: {bf16}", flush=True)
+            checked = sorted(x[key]["checked_s"] for x in ranks[grid])
+            steps = sorted(s for x in ranks[grid] for s in x[key]["step_s"])
+            print(f"tensor parallelism {grid} {key} ({mode}): "
+                  f"{r0['batch_rows']} rows per rank of "
+                  f"{want['batch_rows']}; {r0['cut']} leaves cut over tp; "
+                  f"{len(ranks[grid])} ranks' gathered state bit-identical"
+                  f"{', whole leaves too' if mode == 'plain' else ''}; "
+                  f"reduced loss gradients at the initial parameters within "
+                  f"{grad_worst:.3g} × 1e-3·max(1, max|g|) of one device's "
+                  f"(worst leaf and rank), losses within rtol "
+                  f"{loss_worst:.3g} (d {r0['grads']['d']['loss']} g "
+                  f"{r0['grads']['g']['loss']} vs "
+                  f"{want['grads']['d']['loss']} "
+                  f"{want['grads']['g']['loss']}); superstep metrics "
+                  f"{got_m} vs one device {want_m}; launches per rank "
+                  f"{r0['launches']} (one device {want['launches']}); trunk "
+                  f"rows M per launch {sorted(set(r0['rows']))} (one device "
+                  f"{sorted(set(want['rows']))}); held bytes per rank "
+                  f"{r0['held']} (one device {want['held']}); bytes per "
+                  f"rank and superstep by collective/group "
+                  f"{ {k: int(v) for k, v in sorted(r0['sent'].items())} }; "
+                  f"{steps[len(steps) // 2]:.3f} s per superstep per rank "
+                  f"vs {sorted(want['step_s'])[0]:.3f} s on one device "
+                  f"(host clock, the superstep after the checked one, "
+                  f"median over the ranks; the checked one, warm-up "
+                  f"included, {checked[len(checked) // 2]:.3f} s vs "
+                  f"{want['checked_s']:.3f} s)")
+            paths[f"{name}_tp_{grid}_{mode}"] = r0["launches"]
+    print(f"tensor parallelism: one device's HoloGAN loss gradients under "
+          f"cuDNN lie {spread[0][0]:.3g} × 1e-3·max(1, max|g|) from its "
+          f"gradients with PyTorch's convolutions (worst leaf {spread[0][1:]})"
+          "; the grids' gradients are held to one device's with PyTorch's "
+          "convolutions on both sides")
+    print("tensor parallelism: " + ", ".join(
+        f"{g} on {TP_GRIDS[g][0]} gloo ranks {w:.1f} s" for g, w
+        in walls.items()) + f" from spawn to exit, on {device}; "
+          f"{card_line()}")
     return paths
 
 
@@ -2560,7 +2982,8 @@ def main() -> int:
                         ("yardsticks", yardsticks_phase),
                         ("sharding", lambda: sharding_phase(
                             extras["data_parallel"]["per_rank"], data)),
-                        ("ray_sharding", lambda: ray_sharding_phase(data))):
+                        ("ray_sharding", lambda: ray_sharding_phase(data)),
+                        ("tensor_parallel", tensor_parallel_phase)):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         extras[name] = phase()
@@ -2584,7 +3007,10 @@ def main() -> int:
                       extras["ray_sharding"]["hologan_sp_1x2_plain"][
                           "trilinear"],
                   "hologan_shapes_score":
-                      extras["yardsticks"]["trilinear"]}
+                      extras["yardsticks"]["trilinear"],
+                  **{f"{k}_per_rank": v["trilinear"]
+                     for k, v in extras["tensor_parallel"].items()
+                     if k.startswith("hologan")}}
     trunk_paths = {"pigan": trunk_launches, "anigan": anigan_launches,
                    "anigan_displacement": disp_launches,
                    "pigan_serving": extras["serving"]["siren_trunk"],
@@ -2598,7 +3024,10 @@ def main() -> int:
                       for k, v in extras["ray_sharding"].items()
                       if not k.startswith("hologan")},
                    "pigan_yardstick_width48":
-                       extras["yardsticks"]["siren_trunk"]}
+                       extras["yardsticks"]["siren_trunk"],
+                   **{f"{k}_per_rank": v["siren_trunk"]
+                      for k, v in extras["tensor_parallel"].items()
+                      if k.startswith("pigan")}}
     kernels = [
         {"name": f"trilinear_{k}", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k],

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nerf.siren import MappingNetwork, SirenNet, dense
+from ..parallel import tensor
 from . import tps as tps_functions
 
 
@@ -157,7 +158,8 @@ def _offsets_in(n_verts: int, step: int) -> int:
 
 class LSTMDeformer(Deformer):
     """Offset-MLP latent and a 4-step LSTM emitting per-step affine warps of
-    the points."""
+    the points. Under ``num_tp`` the cell runs with its gate leaves gathered
+    whole (``tensor.call_whole``), the denses column-parallel."""
 
     def __init__(self, template_subdivision: int = 8, latent_size: int = 128,
                  hidden_size: int = 128, steps: int = 4, n_verts: int = 642,
@@ -205,7 +207,8 @@ class LSTMDeformer(Deformer):
         h = torch.zeros(b * m, self.lstm.hidden_size, device=x.device)
         c = torch.zeros_like(h)
         for _ in range(self.steps):
-            h, c = self.lstm(torch.cat([code, xyz], dim=1), (h, c))
+            h, c = tensor.call_whole(self.lstm, torch.cat([code, xyz], dim=1),
+                                     (h, c))
             a = self.out_affine(h)
             xyz = a[:, 3:] + (1.0 + a[:, :3]) * xyz
         return xyz.reshape(b, m, 3)

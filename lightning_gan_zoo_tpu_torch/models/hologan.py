@@ -12,6 +12,13 @@ the JAX package's channels-last layout ((B, D, H, W, C) in, (B, H, W, D·C)
 out) so the tests compare like with like. The view geometry and the
 resample run in float32 with autocast off, as the JAX generator resamples
 in f32 under the bf16 policy.
+
+Under ``num_tp`` the constant volume is gathered whole over the tp group
+where it is read, the 3D and 2D transposed convolutions, the 1×1 conv and
+the AdaIN denses run column-parallel (parallel/tensor.py), and the volume
+reaches the trilinear kernel with all its channels: every tp rank launches
+it on its data rows, as the JAX ``"b d h w c"`` rule keeps ``c``
+replicated (parallel/kernel_sharding.py).
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from torch import nn
 
 from ..ops import grid_sample
 from ..ops.cuda import trilinear as cuda_trilinear
+from ..parallel import tensor
 from ..parallel.dist import draw_rows
 from .layers import SpectralNormConv, ZMapping, adain, conv_init, linear
 
@@ -226,6 +234,9 @@ def _conv2d(in_ch, out_ch, k, stride, padding, generator):
 
 
 class Generator(nn.Module):
+    #: reads its constant volume through parallel/tensor.py
+    tp_aware = True
+
     def __init__(self, in_planes: int, out_planes: int, z_planes: int,
                  view_args, img_size: int = 64, resample: str = "auto",
                  init_generator: torch.Generator | None = None):
@@ -267,7 +278,7 @@ class Generator(nn.Module):
                                  "to sample views from")
             view_in = draw_rows(
                 lambda m: sample_view(generator, m, self.view_args), b)
-        x = self.const.expand(b, -1, -1, -1, -1)
+        x = tensor.whole(self.const).expand(b, -1, -1, -1, -1)
         s0, b0 = self.zmap(z)
         h = F.relu(adain(x, s0, b0, ADAIN_EPS))
         h = self.block3d_0(h, z)

@@ -4,6 +4,12 @@ layers.py).
 Layout is NCHW / NCDHW inside the models, PyTorch's habit. Parameters stay
 float32; under ``precision: 16`` the Trainer runs the forward in bf16
 autocast, as the JAX package's bf16 compute policy does.
+
+Under ``num_tp`` a parameter may be this rank's tp block
+(parallel/tensor.py): the torch convolutions and denses run
+column-parallel through hooks, and the layers here (``tp_aware``) read
+their blocks themselves: the spectral norm column-parallel with σ from the
+whole weight, the norms with their scale and shift gathered whole.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import dist
+from ..parallel import dist, tensor
 
 
 def conv_init(weight: torch.Tensor, generator: torch.Generator):
@@ -76,8 +82,13 @@ class SpectralNormConv(nn.Module):
       * in training mode ``u`` is updated once per call (so a loss that
         calls D twice sees the updated ``u`` on the second call);
       * σ = vᵀ W u_new keeps its W-gradient, with u and v detached;
-      * the power iteration runs in float32 whatever the autocast policy.
+      * the power iteration runs in float32 whatever the autocast policy;
+      * under tp the power iteration and σ read the whole W (gathered), so
+        ``u`` stays the same on every tp rank, and the conv runs
+        column-parallel on this rank's block of W/σ (σ entering the block
+        computation through ``copy_in``, as the input does).
     """
+    tp_aware = True
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int, padding: int, generator: torch.Generator):
@@ -93,7 +104,8 @@ class SpectralNormConv(nn.Module):
     def forward(self, x):
         with torch.autocast(x.device.type, enabled=False):
             # (fan_in, out) with fan_in ordered (kh, kw, in) as JAX's HWIO
-            w = self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0])
+            full = tensor.whole(self.weight)
+            w = full.permute(2, 3, 1, 0).reshape(-1, full.shape[0])
             with torch.no_grad():
                 v = w @ self.u
                 v = v / (torch.linalg.vector_norm(v) + 1e-12)
@@ -102,8 +114,10 @@ class SpectralNormConv(nn.Module):
                 if self.training:
                     self.u.copy_(u_new)
             sigma = v @ (w @ u_new)
-            weight_sn = self.weight / sigma
-        return F.conv2d(x, weight_sn, self.bias, self.stride, self.padding)
+            weight_sn = self.weight / tensor.column_in(sigma, self.weight)
+        return tensor.column_out(
+            F.conv2d(tensor.column_in(x, self.weight), weight_sn, self.bias,
+                     self.stride, self.padding), self.weight, 1)
 
 
 def add_coords(x: torch.Tensor) -> torch.Tensor:
@@ -163,8 +177,11 @@ class BatchNorm2d(nn.Module):
       * eval mode normalises with the running statistics;
       * on more than one data rank the training-mode statistics are those
         of the global batch (the JAX package's sharded BatchNorm), in
-        frozen_stats too; see ``_global_batch_norm``.
+        frozen_stats too; see ``_global_batch_norm``;
+      * under tp the scale and shift are gathered whole (its input is the
+        whole activation).
     """
+    tp_aware = True
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -177,21 +194,21 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
+        weight, bias = tensor.whole(self.weight), tensor.whole(self.bias)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                weight, bias, False, 0.0, self.eps)
         if dist.data_size() > 1:
-            return self._global_batch_norm(x)
+            return self._global_batch_norm(x, weight, bias)
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                            correction=0)
                 torch._foreach_lerp_([self.running_mean, self.running_var],
                                      [mean, var], self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return F.batch_norm(x, None, None, weight, bias, True, 0.0, self.eps)
 
-    def _global_batch_norm(self, x):
+    def _global_batch_norm(self, x, weight, bias):
         """Training-mode BatchNorm over the global batch, in float32: the
         mean from the ranks' summed channel sums, then the biased variance
         from the ranks' summed squared deviations from that mean. Two small
@@ -214,8 +231,7 @@ class BatchNorm2d(nn.Module):
                                      [mean.detach(), var.detach()],
                                      self.momentum)
         y = centred * torch.rsqrt(var + self.eps)[:, None, None]
-        return (y * self.weight[:, None, None]
-                + self.bias[:, None, None]).to(x.dtype)
+        return (y * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
 
 
 @contextlib.contextmanager
@@ -237,7 +253,8 @@ def frozen_stats(module: nn.Module):
 class InstanceNorm(nn.Module):
     """InstanceNorm2d(affine=True) without running statistics: per-sample,
     per-channel statistics over H and W (biased variance, eps 1e-5), then a
-    float32 scale and bias."""
+    float32 scale and bias (gathered whole under tp)."""
+    tp_aware = True
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -246,8 +263,8 @@ class InstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x):
-        return F.instance_norm(x, weight=self.weight, bias=self.bias,
-                               eps=self.eps)
+        return F.instance_norm(x, weight=tensor.whole(self.weight),
+                               bias=tensor.whole(self.bias), eps=self.eps)
 
 
 def make_norm(kind: str, num_features: int) -> nn.Module:

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.cuda import siren_trunk as cuda_trunk
 from ..ops.fast_math import fast_sin
+from ..parallel import tensor
 from ..parallel.dist import draw_rows
 
 BF16 = torch.bfloat16
@@ -54,6 +55,7 @@ W0 = 1.0
 
 class Siren(nn.Module):
     """One FiLM-modulated sine layer, sin(w0·(γ·(x·W + b) + β))."""
+    tp_aware = True
 
     def __init__(self, dim_in: int, dim_out: int, w0: float = W0,
                  is_first: bool = False, bf16: bool = False,
@@ -70,7 +72,9 @@ class Siren(nn.Module):
     def forward(self, x, gamma=None, beta=None):
         with torch.autocast(x.device.type, enabled=False):
             dt = BF16 if self.bf16 and not self.is_first else torch.float32
-            out = x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+            out = tensor.column_out(
+                tensor.column_in(x, self.kernel).to(dt) @ self.kernel.to(dt)
+                + self.bias.to(dt), self.kernel, -1)
             if gamma is not None:
                 out = out * _film(gamma, out)
             if beta is not None:
@@ -135,10 +139,11 @@ class SirenNet(nn.Module):
                 b_in = torch.zeros_like(g_in)
             else:
                 g_in, b_in = gammas.float(), betas.float()
+            w = tensor.whole
             return cuda_trunk.siren_trunk(
-                x.float(), self.layers[0].kernel,
-                torch.stack([lyr.kernel for lyr in self.layers[1:]]),
-                torch.stack([lyr.bias for lyr in self.layers]),
+                x.float(), w(self.layers[0].kernel),
+                torch.stack([w(lyr.kernel) for lyr in self.layers[1:]]),
+                torch.stack([w(lyr.bias) for lyr in self.layers]),
                 g_in.contiguous(), b_in.contiguous(), self.w0s)
 
 

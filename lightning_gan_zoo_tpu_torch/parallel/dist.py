@@ -31,6 +31,16 @@ the NeRF renderer gives each of them 1/sp of every image's rays
 the sp group (``all_gather_rays``). With ``num_sp`` = 1 the data axis is
 the world and every helper is what it was without ray sharding.
 
+Tensor parallelism (``num_tp``; ``make_mesh``'s 'tp' axis and
+``tp_size_of``) adds a third axis, minor to both: rank r sits at (data,
+sp, tp) = (r // (sp·tp), (r // tp) % sp, r % tp). The tp ranks of an
+(data, sp) position hold the same rows and rays and draw the same
+numbers; each holds its block of every tp-sharded parameter
+(parallel/sharding.py), and the column-parallel layers exchange
+activations in the tp group (parallel/tensor.py). Gradients of tp blocks
+are reduced over sp and data alone, those of whole leaves over tp too
+(``average_grads``).
+
 The group comes from torchrun's environment (``init_from_env``) or from
 ``launch``, which spawns one process per device. Its backend is NCCL for
 CUDA devices and gloo for the CPU, unless the caller names one. A failed
@@ -74,57 +84,74 @@ def rank() -> int:
 
 
 # ------------------------------------------------------------ the grid
-#: the sp axis's size and this rank's groups (None: the default group for
-#: the data axis at sp 1; no sp group at sp 1), set by ``init``
+#: the sp and tp axes' sizes and this rank's groups (None: the default
+#: group for the data axis at sp = tp = 1; no sp group at sp 1, no tp
+#: group at tp 1), set by ``init``
 _SP = 1
+_TP = 1
 _DATA_GROUP = None
 _SP_GROUP = None
+_TP_GROUP = None
 
 
-def check_grid(world: int, sp: int):
-    """Raise ValueError unless ``sp`` divides ``world`` (mesh.py's
+def check_grid(world: int, sp: int, tp: int = 1):
+    """Raise ValueError unless ``sp`` · ``tp`` divides ``world`` (mesh.py's
     make_mesh rule, in its words)."""
-    if sp < 1 or world % sp:
-        raise ValueError(f"num_sp={sp} x num_tp=1 does not divide the "
+    if sp < 1 or tp < 1 or world % (sp * tp):
+        raise ValueError(f"num_sp={sp} x num_tp={tp} does not divide the "
                          f"{world}-device mesh")
 
 
-def grid_position(rank_: int, sp: int) -> Tuple[int, int]:
-    """(data index, sp index) of ``rank_`` in a data × sp grid, sp the
-    minor axis."""
-    return rank_ // sp, rank_ % sp
+def grid_position(rank_: int, sp: int, tp: int = 1) -> Tuple[int, int]:
+    """(data index, sp index) of ``rank_`` in a data × sp × tp grid, sp
+    and tp the minor axes (tp the fastest); its tp index is rank_ % tp."""
+    return rank_ // (sp * tp), (rank_ // tp) % sp
 
 
-def grid_groups(world: int, sp: int) -> Tuple[List[List[int]],
-                                              List[List[int]]]:
-    """The ranks of every data group (one per sp index: the ranks that
-    share it) and of every sp group (one per data index), in the order
-    ``init`` creates them."""
-    data = world // sp
-    return ([[d * sp + s for d in range(data)] for s in range(sp)],
-            [list(range(d * sp, (d + 1) * sp)) for d in range(data)])
+def grid_groups(world: int, sp: int, tp: int = 1
+                ) -> Tuple[List[List[int]], List[List[int]]]:
+    """The ranks of every data group (one per (sp, tp) index: the ranks
+    that share it) and of every sp group (one per (data, tp) index), in
+    the order ``init`` creates them."""
+    data, inner = world // (sp * tp), sp * tp
+    return ([[d * inner + s * tp + t for d in range(data)]
+             for s in range(sp) for t in range(tp)],
+            [[d * inner + s * tp + t for s in range(sp)]
+             for d in range(data) for t in range(tp)])
 
 
-def _make_grid(sp: int):
-    """This rank's data and sp groups. Every rank creates every group, in
-    the same order (torch.distributed.new_group is a collective); a group
-    of one rank is not made (its collectives are skipped)."""
-    global _SP, _DATA_GROUP, _SP_GROUP
+def tp_groups(world: int, tp: int) -> List[List[int]]:
+    """The ranks of every tp group (one per (data, sp) index: tp
+    consecutive ranks), in the order ``init`` creates them."""
+    return [list(range(i, i + tp)) for i in range(0, world, tp)]
+
+
+def _make_grid(sp: int, tp: int = 1):
+    """This rank's data, sp and tp groups. Every rank creates every group,
+    in the same order (torch.distributed.new_group is a collective); a
+    group of one rank is not made (its collectives are skipped)."""
+    global _SP, _TP, _DATA_GROUP, _SP_GROUP, _TP_GROUP
     world, me = tdist.get_world_size(), tdist.get_rank()
-    check_grid(world, sp)
-    _SP, _DATA_GROUP, _SP_GROUP = sp, None, None
-    if sp == 1:
+    check_grid(world, sp, tp)
+    _SP, _TP, _DATA_GROUP, _SP_GROUP, _TP_GROUP = sp, tp, None, None, None
+    if sp * tp == 1:
         return
-    data_groups, sp_groups = grid_groups(world, sp)
+    data_groups, sp_groups = grid_groups(world, sp, tp)
     for ranks in data_groups:
         if len(ranks) > 1:
             group = tdist.new_group(ranks)
             if me in ranks:
                 _DATA_GROUP = group
-    for ranks in sp_groups:
-        group = tdist.new_group(ranks)
-        if me in ranks:
-            _SP_GROUP = group
+    if sp > 1:
+        for ranks in sp_groups:
+            group = tdist.new_group(ranks)
+            if me in ranks:
+                _SP_GROUP = group
+    if tp > 1:
+        for ranks in tp_groups(world, tp):
+            group = tdist.new_group(ranks)
+            if me in ranks:
+                _TP_GROUP = group
 
 
 def sp_size() -> int:
@@ -133,16 +160,30 @@ def sp_size() -> int:
 
 
 def sp_rank() -> int:
-    return grid_position(rank(), sp_size())[1]
+    return grid_position(rank(), sp_size(), tp_size())[1]
+
+
+def tp_size() -> int:
+    """The tensor-parallel axis's size (1: off)."""
+    return _TP if is_initialized() else 1
+
+
+def tp_rank() -> int:
+    return rank() % tp_size()
+
+
+def tp_group():
+    """This rank's tp group (None at tp 1)."""
+    return _TP_GROUP
 
 
 def data_size() -> int:
     """The data axis's size: the ranks that hold distinct rows."""
-    return world_size() // sp_size()
+    return world_size() // (sp_size() * tp_size())
 
 
 def data_rank() -> int:
-    return grid_position(rank(), sp_size())[0]
+    return grid_position(rank(), sp_size(), tp_size())[0]
 
 
 def shards_rays(n_rays: int) -> bool:
@@ -180,11 +221,12 @@ def rank_devices(device, n: int) -> List[str]:
 
 
 def init(rank_: int, world: int, device, backend: str | None = None,
-         init_method: str = "env://", sp: int = 1) -> torch.device:
+         init_method: str = "env://", sp: int = 1,
+         tp: int = 1) -> torch.device:
     """Join the default group as ``rank_`` of ``world`` on ``device`` (a
-    CUDA device becomes the current one), in a grid of world/sp data
-    ranks × ``sp`` ray ranks. Returns the device."""
-    check_grid(world, sp)
+    CUDA device becomes the current one), in a grid of world/(sp·tp) data
+    ranks × ``sp`` ray ranks × ``tp`` tensor ranks. Returns the device."""
+    check_grid(world, sp, tp)
     device = torch.device(device)
     backend = backend or backend_for(device)
     kwargs = {}
@@ -198,39 +240,40 @@ def init(rank_: int, world: int, device, backend: str | None = None,
             kwargs["device_id"] = device
     tdist.init_process_group(backend, init_method=init_method, rank=rank_,
                              world_size=world, timeout=TIMEOUT, **kwargs)
-    _make_grid(sp)
+    _make_grid(sp, tp)
     return device
 
 
-def init_from_env(device, sp: int = 1) -> torch.device:
+def init_from_env(device, sp: int = 1, tp: int = 1) -> torch.device:
     """Join the group torchrun describes (RANK, WORLD_SIZE, LOCAL_RANK,
     LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) in a grid with ``sp`` ray
-    ranks. A CUDA rank runs on cuda:LOCAL_RANK.
+    ranks and ``tp`` tensor ranks. A CUDA rank runs on cuda:LOCAL_RANK.
 
-    ``sp`` must also divide LOCAL_WORLD_SIZE, so that an sp group, which
-    gathers every rendered image, stays on one node. This is the JAX
-    Trainer's host-local rule in this package's form: there ``num_sp``
-    must divide the local devices of each process, which has no meaning
-    with one process per card; the ranks torchrun starts on one node play
-    their part."""
+    ``sp`` · ``tp`` must also divide LOCAL_WORLD_SIZE, so that every sp
+    and tp group, which exchange images and activations at every layer,
+    stays on one node. This is the JAX Trainer's host-local rule in this
+    package's form: there ``num_tp`` × ``num_sp`` must divide the local
+    devices of each process, which has no meaning with one process per
+    card; the ranks torchrun starts on one node play their part."""
     rank_, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    if sp > 1 and local % sp:
-        raise ValueError(f"num_sp={sp} must divide the {local} ranks per "
-                         "node (LOCAL_WORLD_SIZE): sp groups must be "
-                         "node-local; scale across nodes via the data axis")
+    if sp * tp > 1 and local % (sp * tp):
+        raise ValueError(f"num_tp={tp} x num_sp={sp} must divide the "
+                         f"{local} ranks per node (LOCAL_WORLD_SIZE): tp "
+                         "and sp groups must be node-local; scale across "
+                         "nodes via the data axis")
     device = torch.device(device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
                                                          rank_)))
-    return init(rank_, world, device, sp=sp)
+    return init(rank_, world, device, sp=sp, tp=tp)
 
 
 def shutdown():
-    global _SP, _DATA_GROUP, _SP_GROUP
+    global _SP, _TP, _DATA_GROUP, _SP_GROUP, _TP_GROUP
     if is_initialized():
         tdist.destroy_process_group()
-    _SP, _DATA_GROUP, _SP_GROUP = 1, None, None
+    _SP, _TP, _DATA_GROUP, _SP_GROUP, _TP_GROUP = 1, 1, None, None, None
 
 
 def free_port() -> int:
@@ -240,14 +283,14 @@ def free_port() -> int:
 
 
 def _rank_main(rank_: int, fn: Callable, args: tuple, devices: Sequence[str],
-               backend: str | None, port: int, sp: int):
+               backend: str | None, port: int, sp: int, tp: int):
     """One spawned rank. After ``fn`` returns, a signal the launcher passes
     on late is ignored (the rank's work is done), and the process ends
     without the interpreter's finalization, which takes about a second
     with torch loaded and several under load (the rescue's SIGTERM-to-exit
     time)."""
     device = init(rank_, len(devices), devices[rank_], backend=backend,
-                  init_method=f"tcp://127.0.0.1:{port}", sp=sp)
+                  init_method=f"tcp://127.0.0.1:{port}", sp=sp, tp=tp)
     try:
         rc = fn(device, *args)
         for sig in (signal.SIGTERM, signal.SIGUSR1):
@@ -261,20 +304,20 @@ def _rank_main(rank_: int, fn: Callable, args: tuple, devices: Sequence[str],
 
 
 def launch(fn: Callable, args: tuple, devices: Sequence[str],
-           backend: str | None = None, sp: int = 1):
+           backend: str | None = None, sp: int = 1, tp: int = 1):
     """``fn(device, *args)`` on ``len(devices)`` ranks of one group, rank r
     in a spawned process on ``devices[r]``, the ranks a grid of data ×
-    ``sp``; a non-zero return ends that rank with that exit code. SIGTERM
-    and SIGUSR1 sent to this process are passed on to every rank. Raises
-    ValueError before any rank starts when ``sp`` does not divide the
-    ranks, and torch.multiprocessing's ProcessExitedException or
+    ``sp`` × ``tp``; a non-zero return ends that rank with that exit code.
+    SIGTERM and SIGUSR1 sent to this process are passed on to every rank.
+    Raises ValueError before any rank starts when ``sp`` · ``tp`` does not
+    divide the ranks, and torch.multiprocessing's ProcessExitedException or
     ProcessRaisedException when a rank fails, after the others have been
     terminated."""
     import torch.multiprocessing as mp
-    check_grid(len(devices), sp)
+    check_grid(len(devices), sp, tp)
     ctx = mp.start_processes(
         _rank_main, args=(fn, args, [str(d) for d in devices], backend,
-                          free_port(), sp),
+                          free_port(), sp, tp),
         nprocs=len(devices), join=False, start_method="spawn")
 
     def forward(signum, frame):
@@ -423,45 +466,62 @@ def take_ray_partial() -> bool:
     return was
 
 
+def is_tp_block(p: torch.Tensor) -> bool:
+    """Whether ``p`` is this rank's tp block of a parameter (it carries the
+    dim it was cut along: parallel/tensor.py)."""
+    return getattr(p, "tp_dim", None) is not None
+
+
 def average_grads(params: Iterable[torch.nn.Parameter],
                   ray_partial: bool = False) -> int:
     """Each gradient replaced by the one-device gradient of the global
-    batch, in one flat tensor of every gradient there is (parameters left
-    without one are the same on every rank): summed over the sp group,
-    then over the data group, and divided by ``grad_divisor``.
+    batch (for a tp block, its block of it), in one flat tensor of every
+    whole leaf's gradient and one of every tp block's (parameters left
+    without one are the same on every rank): a whole leaf's summed over
+    the tp group, then over the sp group, then over the data group, and
+    divided by ``grad_divisor``; a block's summed over the sp and data
+    groups alone, since each tp rank holds a different block.
     With ``ray_partial`` each sp rank holds the partial sum over its rays,
     and the sp sum is the gradient of the data group's rows; otherwise
     every sp rank holds that gradient whole and the sum is sp times it.
-    The sp sum of a whole gradient keeps the sp ranks' copies of the net
-    identical where a kernel does not sum in a fixed order (cuDNN's
-    defaults), which the data-group mean alone would not; it costs one
-    more all-reduce of that gradient over the sp group. Dividing the sum
-    of sp equal copies by sp gives the copy back exactly at sp = 2; at
-    sp ≥ 3 the running sum can round, and the last bit may differ from
-    one device. Two group
+    The sp and tp sums of a whole gradient keep the ranks' copies of the
+    net identical where a kernel does not sum in a fixed order (cuDNN's
+    defaults), which the data-group mean alone would not; each costs one
+    more all-reduce of that gradient. Dividing the sum of k equal copies
+    by k gives the copy back exactly at k = 2; at k ≥ 3 the running sum
+    can round, and the last bit may differ from one device. Group
     reductions rather than one over every rank: the sums are then the
     ones ``parallel/sharding.py``'s reduce-scatter makes under fsdp, so a
-    sharded state stays bit-identical to plain data × sp. Returns the
-    bytes of the flat gradient; 0 without another rank."""
+    sharded state stays bit-identical to plain data × sp × tp. Returns
+    the bytes of the flat gradients; 0 without another rank."""
     if world_size() == 1:
         return 0
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return 0
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    sum_over_sp(flat)
-    if data_size() > 1:
-        tdist.all_reduce(flat, group=_DATA_GROUP)
-    flat.div_(grad_divisor(ray_partial))
-    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(v.view_as(g))
-    return flat.numel() * flat.element_size()
+    have = [p for p in params if p.grad is not None]
+    nbytes = 0
+    for whole in (True, False):
+        grads = [p.grad for p in have if is_tp_block(p) != whole]
+        if not grads:
+            continue
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        if whole:
+            sum_over_tp(flat)
+        sum_over_sp(flat)
+        if data_size() > 1:
+            tdist.all_reduce(flat, group=_DATA_GROUP)
+        flat.div_(grad_divisor(ray_partial, whole))
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+        nbytes += flat.numel() * flat.element_size()
+    return nbytes
 
 
-def grad_divisor(ray_partial: bool) -> int:
-    """What a gradient summed over every rank is divided by: the data
-    ranks for a ray-partial gradient, every rank for a whole one."""
-    return data_size() * (1 if ray_partial else sp_size())
+def grad_divisor(ray_partial: bool, whole: bool = True) -> int:
+    """What a gradient summed over the sp and data groups (and, for a
+    ``whole`` leaf, the tp group) is divided by: the data ranks for a
+    ray-partial gradient, times sp for one every sp rank holds whole,
+    times tp for a leaf every tp rank holds whole."""
+    return (data_size() * (1 if ray_partial else sp_size())
+            * (tp_size() if whole else 1))
 
 
 def sum_over_sp(flat: torch.Tensor) -> torch.Tensor:
@@ -469,6 +529,14 @@ def sum_over_sp(flat: torch.Tensor) -> torch.Tensor:
     1)."""
     if sp_size() > 1:
         tdist.all_reduce(flat, group=_SP_GROUP)
+    return flat
+
+
+def sum_over_tp(flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` summed in place over this rank's tp group (itself at tp
+    1)."""
+    if tp_size() > 1:
+        tdist.all_reduce(flat, group=_TP_GROUP)
     return flat
 
 
@@ -505,8 +573,8 @@ def reduce_scatter_flat(flat: torch.Tensor) -> torch.Tensor:
 def average_metrics(metrics: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
     """0-d metric tensors averaged over the data ranks, in one all-reduce
-    (every rank emits the same keys in the same order; the sp ranks of a
-    data group hold the same values)."""
+    (every rank emits the same keys in the same order; the sp and tp ranks
+    of a data group hold the same values)."""
     if data_size() == 1 or not metrics:
         return metrics
     vals = torch.stack([v.float() for v in metrics.values()])

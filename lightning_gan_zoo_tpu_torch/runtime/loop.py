@@ -80,8 +80,16 @@ supersteps per epoch, the fold's clamp), the sp ranks of a data group
 hold the same rows, and π-GAN's and ANIGAN's renderers split every
 image's rays over them in the training step (nerf/renderer.py); the
 2D families and HoloGAN leave the axis idle. The state shards over the
-data ranks alone. ``num_tp`` > 1 is not ported and raises
-NotImplementedError.
+data ranks alone. ``num_tp`` > 1 adds a tp axis minor to both
+(parallel/dist.py): each tp rank holds its blocks of the parameters the
+JAX leaf rule cuts (``tp_min_shard`` its floor), with their optimizer
+state and EMA twin, and the convolutions and denses run column-parallel
+(parallel/tensor.py). Every rank-0 consumer of G (validation, the
+figures, FID/KID, ``eval_only``, ``debug.verbose_shape``) runs inside
+``_full_state()``, which every rank enters and which puts the whole
+parameters in the modules, so rank 0 runs the one-device forward with no
+tp collective; checkpoints and the rescue are gathered to the one-device
+format as under fsdp.
 """
 from __future__ import annotations
 
@@ -115,17 +123,6 @@ from .steps import map_batch, microbatch_count, superstep
 PREEMPT_SYNC_EVERY = 8
 
 
-def check_ported(cfg: Config):
-    """Raise NotImplementedError naming the switched-on config features
-    this package cannot run yet."""
-    found = [f"{key} > 1 (multi-device)" for key in ("num_tp",)
-             if int(cfg.get(key, 1) or 1) > 1]
-    if found:
-        raise NotImplementedError(
-            "not yet ported to lightning_gan_zoo_tpu_torch: "
-            + "; ".join(found))
-
-
 def _resolve_version(cfg: Config, output_root: Path) -> str:
     """cfg.version, a cluster job id, else the next free version_N (rank
     0's: a rank scanning after rank 0 made version_N would pick N+1)."""
@@ -150,13 +147,16 @@ def _dataset_kwargs(cfg: Config) -> dict:
 
 class Trainer:
     def __init__(self, cfg: Config, device):
-        check_ported(cfg)
-        sp = int(cfg.get("num_sp", 1) or 1)
-        if sp != dist.sp_size():
-            raise ValueError(f"num_sp={sp}, but this process's grid has "
-                             f"sp={dist.sp_size()} of {dist.world_size()} "
-                             "ranks (start the ranks with dist.launch or "
-                             "init with sp=num_sp)")
+        for key, have in (("num_sp", dist.sp_size()),
+                          ("num_tp", dist.tp_size())):
+            want = int(cfg.get(key, 1) or 1)
+            if want != have:
+                axis = key[4:]
+                raise ValueError(f"{key}={want}, but this process's grid has "
+                                 f"{axis}={have} of {dist.world_size()} "
+                                 "ranks (start the ranks with dist.launch or "
+                                 f"init with {axis}={key})")
+        self.tp_min_shard = int(cfg.get("tp_min_shard", 8) or 8)
         self.device = torch.device(device)
         # Explicit, since cuDNN defaults to TF32 for float32 convolutions.
         # Under precision 16 the convolutions and matmuls run in bf16
@@ -461,7 +461,7 @@ class Trainer:
             for sig, handler in old_handlers:
                 signal.signal(sig, handler)
         if self.state.sharding is not None:
-            self.state.sharding.materialize()   # the trained G and D, whole
+            self.state.sharding.finish()        # the trained G and D, whole
         self.ckpt.finalize()
         self.trace.close()
 
@@ -471,7 +471,8 @@ class Trainer:
             self.task, loader.steps_per_epoch() * self._active_fold,
             epoch_supersteps=self._epoch_superstep_table(len(loader.dataset),
                                                          num_epochs),
-            ema=self.ema_decay > 0.0, zero_opt=self.zero_opt, fsdp=self.fsdp)
+            ema=self.ema_decay > 0.0, zero_opt=self.zero_opt, fsdp=self.fsdp,
+            tp_min_shard=self.tp_min_shard)
         self.resume()
         self._print_shapes()
         while self.epoch < num_epochs:
@@ -553,7 +554,8 @@ class Trainer:
 
     def _full_state(self):
         """The full parameters and EMA twin in the modules for the block (a
-        collective under fsdp; every rank enters it at the same point)."""
+        collective under fsdp and under tp; every rank enters it at the
+        same point)."""
         sh = self.state.sharding
         return sh.full() if sh is not None else contextlib.nullcontext()
 
@@ -602,7 +604,8 @@ class Trainer:
         validation's metrics."""
         self.state = create_train_state(self.task, steps_per_epoch=1,
                                         ema=self.ema_decay > 0.0,
-                                        zero_opt=self.zero_opt, fsdp=self.fsdp)
+                                        zero_opt=self.zero_opt, fsdp=self.fsdp,
+                                        tp_min_shard=self.tp_min_shard)
         self.resume()
         self._print_shapes()
         if self.state.step == 0:

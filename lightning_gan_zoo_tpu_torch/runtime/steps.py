@@ -26,8 +26,13 @@ image, and every net of a family without a renderer) has sp times it,
 divided back. This is the JAX package's ``kernel_sharding._reduce_axes``:
 a partial sum is reduced over the axes that shard its inputs; the sum of
 the whole copies keeps them identical where cuDNN's kernels do not fix
-their summation order. The clip, the EMA, the extra state and the
-counters are the same arithmetic on every rank. The collectives are
+their summation order. On a grid with a tp axis (``num_tp``) a tp
+block's gradient is this rank's block of the one-device gradient and is
+reduced over the sp and data groups alone; a leaf whole over tp has the
+same whole gradient on every tp rank (parallel/tensor.py's backward rule),
+summed over the tp group and divided back, before the sp sum and the data
+mean, for the same reason as the sp sum. The clip, the EMA, the extra
+state and the counters are the same arithmetic on every rank. The collectives are
 explicit rather than torch's DistributedDataParallel, whose reducer expects
 one fixed set of parameters per backward: the phases toggle
 ``requires_grad``, the penalties take autograd.grad inside the loss, and D
@@ -39,8 +44,9 @@ after a phase's backward: the gradients are reduced (all-reduced, or
 reduce-scattered under fsdp), missing ones filled with zeros, the blocks
 refreshed from the full parameters (so WGAN's clip reaches the state),
 each rank's optimizer steps its blocks, and one all-gather puts them back
-into the full parameters the next micro-step reads. Under fsdp the full
-parameters are gathered at the superstep's start and freed at its end.
+into the full parameters the next micro-step reads (the tp blocks, on a
+tp grid). Under fsdp the full parameters are gathered at the superstep's
+start and freed at its end.
 """
 from __future__ import annotations
 

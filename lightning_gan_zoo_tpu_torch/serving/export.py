@@ -55,6 +55,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel import tensor
+
 VIEW_DIM = 6   # [azimuth, elevation, scale, tx, ty, tz]
 #: the largest batch a dynamic-batch program serves
 MAX_BATCH = 1024
@@ -153,7 +155,12 @@ def build_exported_generator(task, batch: int, pose: bool = False,
     """``torch.export`` of the task's eval-mode generate. Returns
     (ExportedProgram, info): ``info["dynamic"]`` says whether the symbolic
     batch shipped, ``info["fallback_reason"]`` every downgrade taken (or
-    None)."""
+    None). G must hold its whole parameters: a task cut for tensor
+    parallelism exports inside its state's ``sharding.full()``, which
+    gathers them (a program holds no tp collective)."""
+    if any(tensor.is_block(p) for p in task.generator.parameters()):
+        raise ValueError("G holds tp blocks: export it inside "
+                         "sharding.full(), which gathers it whole")
     if pose and not hasattr(task, "view_from_uniforms"):
         raise ValueError(
             f"serving.pose=true needs a view-conditioned family; "

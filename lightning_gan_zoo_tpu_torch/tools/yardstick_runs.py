@@ -127,7 +127,6 @@ def train(overrides: Sequence[str], device, keep: Sequence[int],
             return out
 
     cfg = compose(REPO / "conf", list(overrides))
-    loop.check_ported(cfg)
     trainer = KeepingTrainer(cfg, device)
     t0 = time.perf_counter()
     trainer.fit()

@@ -28,12 +28,16 @@ and the exit code is non-zero when any rank fails. Under torchrun
 state) and ``fsdp=true`` (ZeRO-3: of the parameters and the EMA twin too)
 shard the state over those ranks by the JAX package's leaf rule; on one
 rank they do nothing. ``num_sp=S`` (ray sharding) makes the ranks a grid
-of N/S data ranks × S ray ranks (S must divide N, and under torchrun the
-ranks of one node, LOCAL_WORLD_SIZE): the batch splits over the data
-ranks, and π-GAN's and ANIGAN's training renders split every image's rays
-over the S ranks of a data group; the run prints its grid, e.g.
-``[dist] grid data=1 × sp=2``. ``num_tp`` > 1 fails with a "not yet
-ported" error.
+of N/S data ranks × S ray ranks: the batch splits over the data ranks,
+and π-GAN's and ANIGAN's training renders split every image's rays over
+the S ranks of a data group. ``num_tp=T`` (tensor parallelism) adds T tensor ranks minor to
+both, a grid of N/(S·T) data × S sp × T tp ranks: each tp rank holds its
+blocks of the parameters the JAX leaf rule cuts (flax's trailing axis,
+at least ``tp_min_shard`` channels per rank, default 8) and the
+convolutions and denses run column-parallel. S·T must divide N (else exit
+2 with "num_sp=S x num_tp=T does not divide the N-device mesh"), and
+under torchrun the ranks of one node, LOCAL_WORLD_SIZE. The run prints its
+grid, e.g. ``[dist] grid data=1 × sp=2 × tp=2``.
 """
 from __future__ import annotations
 
@@ -96,23 +100,18 @@ def main(argv=None) -> int:
         return 2
 
     from lightning_gan_zoo_tpu_torch.parallel import dist
-    from lightning_gan_zoo_tpu_torch.runtime import loop
-    try:        # here too, before any rank starts
-        loop.check_ported(cfg)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
     sp = int(cfg.get("num_sp", 1) or 1)
+    tp = int(cfg.get("num_tp", 1) or 1)
     if "WORLD_SIZE" in os.environ:            # a torchrun rank
         try:
-            device = dist.init_from_env(device, sp=sp)
+            device = dist.init_from_env(device, sp=sp, tp=tp)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         print(f"[dist] rank {dist.rank()} of {dist.world_size()}, backend "
               f"{torch.distributed.get_backend()}, {device}", flush=True)
-        if sp > 1 and dist.is_main_process():
-            print(_grid_line(dist.world_size(), sp), flush=True)
+        if sp * tp > 1 and dist.is_main_process():
+            print(_grid_line(dist.world_size(), sp, tp), flush=True)
         try:
             return _run_rank(device, cfg)
         finally:
@@ -120,7 +119,7 @@ def main(argv=None) -> int:
     n = int(cfg.get("num_gpus", 1) or 1)
     devices = dist.rank_devices(device, n) if n > 1 else [device]
     try:
-        dist.check_grid(len(devices), sp)
+        dist.check_grid(len(devices), sp, tp)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -132,15 +131,15 @@ def main(argv=None) -> int:
     print(f"[dist] num_gpus={n}: world size {len(devices)}, backend "
           f"{dist.backend_for(device)}, devices {', '.join(devices)}",
           flush=True)
-    if sp > 1:
-        print(_grid_line(len(devices), sp), flush=True)
+    if sp * tp > 1:
+        print(_grid_line(len(devices), sp, tp), flush=True)
     if torch.device(device).type == "cuda":
         # once here, not N times at once in the ranks
         from lightning_gan_zoo_tpu_torch.ops.cuda.build import build_library
         build_library()
     import torch.multiprocessing as mp
     try:
-        dist.launch(_run_rank, (cfg,), devices, sp=sp)
+        dist.launch(_run_rank, (cfg,), devices, sp=sp, tp=tp)
     except mp.ProcessExitedException as e:
         print(f"error: rank {e.error_index} exited with code {e.exit_code}",
               file=sys.stderr)
@@ -151,8 +150,9 @@ def main(argv=None) -> int:
     return 0
 
 
-def _grid_line(world: int, sp: int) -> str:
-    return f"[dist] grid data={world // sp} × sp={sp}"
+def _grid_line(world: int, sp: int, tp: int) -> str:
+    line = f"[dist] grid data={world // (sp * tp)} × sp={sp}"
+    return line + (f" × tp={tp}" if tp > 1 else "")
 
 
 def _run_rank(device, cfg) -> int:

@@ -104,19 +104,23 @@ def test_cli_trains_pigan_through_its_schedules_without_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     (["generator.resample=shear"], "shear"),
-    # zero_opt, fsdp and num_sp are ported: beside an unported switch the
-    # refusal names that switch alone
+    # zero_opt, fsdp, num_sp and num_tp are ported: num_sp × num_tp must
+    # divide the ranks (the JAX make_mesh rule, in its words)
     pytest.param(["num_gpus=2", "zero_opt=true", "num_sp=2", "num_tp=2"],
-                 "num_tp", id="extra1-zero_opt"),
-    # num_sp must divide the ranks (the JAX make_mesh rule)
+                 "num_sp=2 x num_tp=2 does not divide the 2-device mesh",
+                 id="extra1-zero_opt"),
     pytest.param(["num_gpus=2", "num_sp=3"],
                  "num_sp=3 x num_tp=1 does not divide the 2-device mesh",
                  id="extra2-num_sp"),
-    (["num_tp=2"], "num_tp"),
-    pytest.param(["zero_opt=true", "num_tp=2"], "num_tp",
+    pytest.param(["num_tp=2"],
+                 "num_sp=1 x num_tp=2 does not divide the 1-device mesh",
+                 id="extra3-num_tp"),
+    pytest.param(["zero_opt=true", "num_tp=2"],
+                 "num_sp=1 x num_tp=2 does not divide the 1-device mesh",
                  id="extra4-zero_opt=true"),
     pytest.param(["num_gpus=2", "fsdp=true", "num_sp=2", "num_tp=2"],
-                 "num_tp", id="extra5-fsdp=true"),
+                 "num_sp=2 x num_tp=2 does not divide the 2-device mesh",
+                 id="extra5-fsdp=true"),
 ])
 def test_cli_refuses_unported(extra, message, tmp_path, capsys):
     rc = run_network_torch.main(SMALL + extra + [f"output_root={tmp_path}",

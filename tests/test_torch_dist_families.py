@@ -156,17 +156,19 @@ def _rank_worker(device, out_dir: str, jobs) -> int:
     return 0
 
 
-def run_ranks(jobs, out_dir: Path, n: int = RANKS, sp: int = 1) -> list:
+def run_ranks(jobs, out_dir: Path, n: int = RANKS, sp: int = 1,
+              tp: int = 1) -> list:
     """``jobs`` ((name, function, args) each, the functions at a module's
-    top level) on ``n`` gloo ranks of one group, a grid of n/sp data ×
-    ``sp`` ray ranks; every rank's results, by name."""
+    top level) on ``n`` gloo ranks of one group, a grid of n/(sp·tp) data
+    × ``sp`` ray ranks × ``tp`` tensor ranks; every rank's results, by
+    name."""
     out_dir.mkdir(parents=True, exist_ok=True)
     old = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
                                           "MKL_NUM_THREADS")}
     os.environ.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     try:
         dist.launch(_rank_worker, (str(out_dir), jobs), ["cpu"] * n,
-                    backend="gloo", sp=sp)
+                    backend="gloo", sp=sp, tp=tp)
     finally:
         for k, v in old.items():
             if v is None:

@@ -169,16 +169,23 @@ def test_leaf_rule_matches_jax_state_shardings(family, world, fsdp):
 
 
 def test_zero_leaf_rule_cases():
-    """tests/test_zero.py::test_zero_leaf_rule's data-axis cases, on the
-    port's rule (tp = 1: tensor parallelism is not ported)."""
+    """tests/test_zero.py::test_zero_leaf_rule's cases on the port's rule:
+    the data-axis ones, then the data × tp ones (the data factor read with
+    the leaf's tp factor, 1 where the tp rule leaves it whole)."""
     assert sharding.sharded(16, 4, 8)            # (3, 3, 8, 16) over 8
     assert sharding.sharded(16, 1, 8)            # (16,)
     assert not sharding.sharded(10, 1, 8)        # (10,): whole
     assert not sharding.sharded(1, 0, 8)         # (): whole
     assert not sharding.sharded(16, 4, 1)        # one rank: whole
     assert sharding.sharded(2, 1, 2)             # no floor on data
-    with pytest.raises(NotImplementedError):
-        sharding.sharded(16, 4, 2, tp=4)
+    # (data=2, tp=4): a tp-sharded leaf's moment gains the data axis too
+    assert sharding.tp_sharded(16, 4, 4, 1) and sharding.sharded(16, 4, 2, 4)
+    # the tp floor keeps the leaf whole over tp: its moment over data only
+    assert not sharding.tp_sharded(16, 4, 4, 8)
+    assert sharding.sharded(16, 4, 2, 1)
+    # divisible by tp but not by data × tp: it keeps its tp placement
+    assert sharding.tp_sharded(4, 1, 4, 1)
+    assert not sharding.sharded(4, 1, 2, 4)
 
 
 def test_jax_leaf_rule_spot_checks():
