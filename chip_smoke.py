@@ -1607,6 +1607,9 @@ DP_TOL = {"hologan": (2e-3, 1e-5), "pigan": (1e-2, 1e-3),
           "dc_gan": (1e-2, 1e-3)}
 #: supersteps timed after the checked one, on each rank
 DP_TIMED_STEPS = 3
+#: seconds a launch of the two- and four-rank phases may take (the
+#: slowest, phase 23's 1 × 1 × 2 grid, takes about 80 s on an H100)
+LAUNCH_DEADLINE = 600
 DP_OUT = REPO / "build" / "chip_smoke_output" / "data_parallel"
 
 
@@ -1747,7 +1750,7 @@ def data_parallel_phase():
     DP_OUT.mkdir(parents=True)
     t0 = time.perf_counter()
     dist.launch(dp_rank, (str(DP_OUT),), ["cuda:0", "cuda:0"],
-                backend="gloo")
+                backend="gloo", deadline=LAUNCH_DEADLINE)
     spawn_wall = time.perf_counter() - t0
     ranks = [torch.load(DP_OUT / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
@@ -2020,7 +2023,7 @@ def sharding_phase(per_superstep: dict, anigan_overrides: list):
     families = {**SHARD_FAMILIES,
                 "anigan": SHARD_FAMILIES["anigan"] + list(anigan_overrides)}
     dist.launch(shard_rank, (str(SHARD_OUT), families), ["cuda:0", "cuda:0"],
-                backend="gloo")
+                backend="gloo", deadline=LAUNCH_DEADLINE)
     spawn_wall = time.perf_counter() - t0
     ranks = [torch.load(SHARD_OUT / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
@@ -2290,7 +2293,7 @@ def ray_sharding_phase(anigan_overrides: list, device: str = "cuda:0",
         out.mkdir(parents=True)
         t0 = time.perf_counter()
         dist.launch(sp_rank, (str(out), jobs), [device] * n, backend="gloo",
-                    sp=2)
+                    sp=2, deadline=LAUNCH_DEADLINE)
         walls[grid] = time.perf_counter() - t0
         ranks[grid] = [torch.load(out / f"rank{r}.pt", weights_only=False)
                        for r in range(n)]
@@ -2621,7 +2624,7 @@ def tensor_parallel_phase(device: str = "cuda:0"):
         dist.launch(tp_rank, (str(out), {
             key: (name, TP_FAMILIES[name], mode)
             for key, (name, mode) in jobs.items()}), [device] * n,
-            backend="gloo", sp=sp, tp=2)
+            backend="gloo", sp=sp, tp=2, deadline=LAUNCH_DEADLINE)
         walls[grid] = time.perf_counter() - t0
         print(f"tensor parallelism {grid}: {walls[grid]:.1f} s", flush=True)
         ranks[grid] = [torch.load(out / f"rank{r}.pt", weights_only=False)

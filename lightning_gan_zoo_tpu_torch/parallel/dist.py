@@ -55,6 +55,7 @@ import os
 import signal
 import socket
 import sys
+import time
 from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
@@ -64,6 +65,25 @@ import torch.distributed as tdist
 #: other ranks wait in the broadcast of its metrics, longer than the
 #: default collective timeout allows
 TIMEOUT = datetime.timedelta(minutes=60)
+#: seconds that ``launch`` gives its ranks to end after SIGTERM once its
+#: deadline has passed, before it kills them (a rank that has returned
+#: from its function ignores SIGTERM)
+GRACE = 10.0
+
+
+class LaunchDeadlineExceeded(TimeoutError):
+    """``launch``'s deadline passed with ranks still alive; they have been
+    stopped. ``running``: the ranks still inside their function;
+    ``waiting``: the ranks that had returned from it and waited for the
+    others."""
+
+    def __init__(self, deadline: float, running: List[int],
+                 waiting: List[int]):
+        super().__init__(
+            f"the launch's deadline of {deadline:g} s passed with rank(s) "
+            f"{running} still running their function (rank(s) {waiting} "
+            "done and waiting for them); every rank was stopped")
+        self.deadline, self.running, self.waiting = deadline, running, waiting
 
 
 def backend_for(device) -> str:
@@ -221,11 +241,13 @@ def rank_devices(device, n: int) -> List[str]:
 
 
 def init(rank_: int, world: int, device, backend: str | None = None,
-         init_method: str = "env://", sp: int = 1,
-         tp: int = 1) -> torch.device:
+         init_method: str = "env://", sp: int = 1, tp: int = 1,
+         timeout: datetime.timedelta = TIMEOUT) -> torch.device:
     """Join the default group as ``rank_`` of ``world`` on ``device`` (a
     CUDA device becomes the current one), in a grid of world/(sp·tp) data
-    ranks × ``sp`` ray ranks × ``tp`` tensor ranks. Returns the device."""
+    ranks × ``sp`` ray ranks × ``tp`` tensor ranks; a collective or the
+    rendezvous that waits longer than ``timeout`` raises. Returns the
+    device."""
     check_grid(world, sp, tp)
     device = torch.device(device)
     backend = backend or backend_for(device)
@@ -239,7 +261,7 @@ def init(rank_: int, world: int, device, backend: str | None = None,
             # start fails here rather than at the first collective
             kwargs["device_id"] = device
     tdist.init_process_group(backend, init_method=init_method, rank=rank_,
-                             world_size=world, timeout=TIMEOUT, **kwargs)
+                             world_size=world, timeout=timeout, **kwargs)
     _make_grid(sp, tp)
     return device
 
@@ -283,16 +305,19 @@ def free_port() -> int:
 
 
 def _rank_main(rank_: int, fn: Callable, args: tuple, devices: Sequence[str],
-               backend: str | None, port: int, sp: int, tp: int):
-    """One spawned rank. After ``fn`` returns, a signal the launcher passes
-    on late is ignored (the rank's work is done), and the process ends
-    without the interpreter's finalization, which takes about a second
-    with torch loaded and several under load (the rescue's SIGTERM-to-exit
-    time)."""
+               backend: str | None, port: int, sp: int, tp: int,
+               timeout: datetime.timedelta, done):
+    """One spawned rank. After ``fn`` returns, the rank marks itself in
+    ``done`` (a shared byte per rank), a signal the launcher passes on late
+    is ignored (the rank's work is done), and the process ends without the
+    interpreter's finalization, which takes about a second with torch
+    loaded and several under load (the rescue's SIGTERM-to-exit time)."""
     device = init(rank_, len(devices), devices[rank_], backend=backend,
-                  init_method=f"tcp://127.0.0.1:{port}", sp=sp, tp=tp)
+                  init_method=f"tcp://127.0.0.1:{port}", sp=sp, tp=tp,
+                  timeout=timeout)
     try:
         rc = fn(device, *args)
+        done[rank_] = 1
         for sig in (signal.SIGTERM, signal.SIGUSR1):
             signal.signal(sig, signal.SIG_IGN)
         barrier()
@@ -304,7 +329,8 @@ def _rank_main(rank_: int, fn: Callable, args: tuple, devices: Sequence[str],
 
 
 def launch(fn: Callable, args: tuple, devices: Sequence[str],
-           backend: str | None = None, sp: int = 1, tp: int = 1):
+           backend: str | None = None, sp: int = 1, tp: int = 1,
+           deadline: float | None = None):
     """``fn(device, *args)`` on ``len(devices)`` ranks of one group, rank r
     in a spawned process on ``devices[r]``, the ranks a grid of data ×
     ``sp`` × ``tp``; a non-zero return ends that rank with that exit code.
@@ -312,12 +338,24 @@ def launch(fn: Callable, args: tuple, devices: Sequence[str],
     Raises ValueError before any rank starts when ``sp`` · ``tp`` does not
     divide the ranks, and torch.multiprocessing's ProcessExitedException or
     ProcessRaisedException when a rank fails, after the others have been
-    terminated."""
+    terminated.
+
+    With a ``deadline`` (seconds from the call), the ranks' collectives
+    time out after at most that long too, and when it passes with a rank
+    still alive, every rank is sent SIGTERM, killed after ``GRACE``
+    seconds, and ``LaunchDeadlineExceeded`` names the ranks that were
+    still inside ``fn``. Without one, the wait is unbounded and the
+    collectives time out after ``TIMEOUT``."""
     import torch.multiprocessing as mp
     check_grid(len(devices), sp, tp)
+    timeout = TIMEOUT
+    if deadline is not None:
+        timeout = min(timeout, datetime.timedelta(seconds=deadline))
+        end = time.monotonic() + deadline
+    done = mp.get_context("spawn").Array("b", len(devices), lock=False)
     ctx = mp.start_processes(
         _rank_main, args=(fn, args, [str(d) for d in devices], backend,
-                          free_port(), sp, tp),
+                          free_port(), sp, tp, timeout, done),
         nprocs=len(devices), join=False, start_method="spawn")
 
     def forward(signum, frame):
@@ -332,11 +370,36 @@ def launch(fn: Callable, args: tuple, devices: Sequence[str],
         except ValueError:          # not the main thread
             pass
     try:
-        while not ctx.join():
-            pass
+        while not ctx.join(None if deadline is None
+                           else max(0.0, end - time.monotonic())):
+            if deadline is not None and time.monotonic() >= end:
+                alive = [r for r, p in enumerate(ctx.processes)
+                         if p.is_alive()]
+                _stop(ctx.processes)
+                raise LaunchDeadlineExceeded(
+                    deadline, [r for r in alive if not done[r]],
+                    [r for r in alive if done[r]])
     finally:
         for sig, handler in old:
             signal.signal(sig, handler)
+        for path in ctx.error_files:    # a failed rank's traceback, read
+            with contextlib.suppress(OSError):
+                os.unlink(path)
+
+
+def _stop(processes):
+    """SIGTERM to every live process, SIGKILL to those alive ``GRACE``
+    seconds later; every process joined."""
+    for p in processes:
+        if p.is_alive():
+            p.terminate()
+    end = time.monotonic() + GRACE
+    for p in processes:
+        p.join(max(0.0, end - time.monotonic()))
+    for p in processes:
+        if p.is_alive():
+            p.kill()
+        p.join()
 
 
 # ------------------------------------------------------------ the batch

@@ -52,7 +52,10 @@ sys.path.insert(0, str(REPO_ROOT))
 CONF_DIR = REPO_ROOT / "conf"
 
 
-def main(argv=None) -> int:
+def main(argv=None, deadline: float | None = None) -> int:
+    """The CLI on ``argv`` (sys.argv's by default); the exit code. The
+    ranks that ``num_gpus`` spawns run under ``deadline`` seconds
+    (``dist.launch``'s; none by default)."""
     argv = list(sys.argv[1:] if argv is None else argv)
 
     print_cfg = False
@@ -139,7 +142,11 @@ def main(argv=None) -> int:
         build_library()
     import torch.multiprocessing as mp
     try:
-        dist.launch(_run_rank, (cfg,), devices, sp=sp, tp=tp)
+        dist.launch(_run_rank, (cfg,), devices, sp=sp, tp=tp,
+                    deadline=deadline)
+    except dist.LaunchDeadlineExceeded as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     except mp.ProcessExitedException as e:
         print(f"error: rank {e.error_index} exited with code {e.exit_code}",
               file=sys.stderr)

@@ -5,6 +5,7 @@ a resume from it, also on two gloo ranks with num_gpus=2, and a SIGTERM
 rescue of a two-rank run), π-GAN on a grid of two ray-sharding ranks
 (num_sp=2) with a resume on one rank, and loads no JAX module; in-process
 it refuses what it cannot run with a clear message."""
+import contextlib
 import json
 import os
 import re
@@ -19,6 +20,7 @@ import torch
 
 import run_network_torch
 from tests.conftest import CONF_DIR, REPO_ROOT
+from tests.test_torch_dist_families import DEADLINE
 from lightning_gan_zoo_tpu.config import compose as jax_compose
 from lightning_gan_zoo_tpu_torch.config import compose
 
@@ -51,12 +53,13 @@ FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 
 def _run_cli(args):
-    """run_network_torch.main(args) in a fresh interpreter; prints the
-    top-level packages of every loaded module that the port must not
-    load."""
+    """run_network_torch.main(args) in a fresh interpreter, its ranks (with
+    num_gpus) under the suite's launch deadline, which ends them before
+    the interpreter's own time limit; prints the top-level packages of
+    every loaded module that the port must not load."""
     code = (
         "import sys; import run_network_torch as r; "
-        f"rc = r.main({args!r}); "
+        f"rc = r.main({args!r}, deadline={DEADLINE}); "
         f"print('FOREIGN', sorted({{m.split('.')[0] for m in sys.modules}}"
         f" & set({FOREIGN!r}))); sys.exit(rc)")
     env = {**os.environ, "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
@@ -329,7 +332,8 @@ def _sigterm_two_ranks(tmp_path, *extra) -> Path:
              "+expt=dc_gan", *SMALL_2D, "num_gpus=2", "save_ckpts=False",
              "train.num_epochs=500", f"output_root={tmp_path}", "version=v0",
              *extra, "--device", "cpu"],
-            cwd=REPO_ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+            cwd=REPO_ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
     try:
         t0 = time.monotonic()
         while "epoch 1 [" not in log.read_text(errors="replace"):
@@ -339,9 +343,10 @@ def _sigterm_two_ranks(tmp_path, *extra) -> Path:
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=30)
+        # the launcher and the ranks it spawned, whatever state they are in
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
     text = log.read_text()
     assert rc == 0, text[-2000:]
     assert text.count("[rescue] checkpointed epoch") == 1, text[-2000:]

@@ -15,11 +15,17 @@
     epoch the schedule table counts; the ranks agree on the run version and
     only rank 0 logs;
   * no fallback: a NCCL group that cannot start raises and leaves no group;
-    a rank that fails ends the launch with an error, its peers stopped.
+    a rank that fails ends the launch with an error, its peers stopped;
+  * bounded and clean: ``run_ranks`` leaves no rank file behind after a
+    launch that passes or fails, and a rank that never returns makes a
+    launch with a deadline raise, naming it, soon after the deadline.
 
 One group of 2 ranks and one of 4 per module, each running every job in
 the same workers.
 """
+import errno
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -274,3 +280,77 @@ def test_a_failed_rank_fails_the_launch(tmp_path):
     # whichever rank the launcher saw end first: rank 1 with its error, or
     # rank 0, whose barrier lost its peer
     assert "rank 1 fails" in str(err.value) or err.value.error_index == 0
+
+
+def shared_and_own_tensors() -> dict:
+    """Tensors that every rank holds alike, twice over, and one of its
+    own."""
+    same = torch.arange(6.0).reshape(2, 3)
+    return {"same": same, "again": same.clone(), "rows": [same.t()],
+            "own": torch.full((2,), float(dist.rank())),
+            "rank": dist.rank()}
+
+
+class _Unsaveable:
+    """Pickling it fails as a write to a full disk does, once rank 0's file
+    is there (so that a rank file exists when the launch fails)."""
+
+    def __init__(self, out_dir: str):
+        self.out_dir = out_dir
+
+    def __reduce__(self):
+        t0 = time.monotonic()
+        while (not (Path(self.out_dir) / "rank0.pt").exists()
+               and time.monotonic() - t0 < 60):
+            time.sleep(0.05)
+        raise OSError(errno.ENOSPC, "No space left on device")
+
+
+def unsaveable_on_rank_1(out_dir: str) -> dict:
+    return {"t": torch.ones(3),
+            "x": _Unsaveable(out_dir) if dist.rank() == 1 else None}
+
+
+def test_run_ranks_leaves_no_rank_file(tmp_path):
+    """A passing launch: every rank's results come back whole (what the
+    ranks share and what each holds alone) and no rank file is left; a
+    launch in which rank 1 cannot write its file fails and leaves none
+    either."""
+    ranks = run_ranks([("t", shared_and_own_tensors, ())], tmp_path, n=2)
+    assert list(tmp_path.glob("rank*.pt")) == []
+    for r, got in enumerate(x["t"] for x in ranks):
+        assert got["rank"] == r
+        torch.testing.assert_close(got["same"],
+                                   torch.arange(6.0).reshape(2, 3),
+                                   rtol=0, atol=0)
+        assert torch.equal(got["again"], got["same"])
+        assert torch.equal(got["rows"][0], got["same"].t())
+        assert torch.equal(got["own"], torch.full((2,), float(r)))
+    import torch.multiprocessing as mp
+    out = tmp_path / "failed"
+    with pytest.raises(mp.ProcessRaisedException) as err:
+        run_ranks([("t", unsaveable_on_rank_1, (str(out),))], out, n=2)
+    # rank 1's error, or rank 0's, whose barrier lost its peer
+    assert ("No space left on device" in str(err.value)
+            or err.value.error_index == 0)
+    assert list(out.glob("rank*.pt")) == []
+
+
+def _blocks_on_rank_1(device):
+    if dist.rank() == 1:
+        threading.Event().wait()
+    return 0
+
+
+def test_a_launch_past_its_deadline_names_the_stuck_rank():
+    """Rank 1 never returns; rank 0 returns and waits for it. A 20 s
+    deadline ends the launch within the deadline and the grace period,
+    and the error names rank 1 as the rank still running."""
+    t0 = time.monotonic()
+    with pytest.raises(dist.LaunchDeadlineExceeded) as err:
+        dist.launch(_blocks_on_rank_1, (), ["cpu"] * 2, backend="gloo",
+                    deadline=20)
+    elapsed = time.monotonic() - t0
+    assert 20 <= elapsed < 20 + dist.GRACE + 5, elapsed
+    assert err.value.running == [1], str(err.value)
+    assert "rank(s) [1] still running" in str(err.value)

@@ -12,13 +12,23 @@ same workers. Per family:
     package's tolerances (tests/test_sharding.py);
   * one full superstep: both ranks' parameters and buffers bit-identical,
     and the metrics within rtol 2e-3 (atol 1e-5) of one device.
+
+``run_ranks`` is how every multi-rank test of the port starts its ranks:
+under a deadline, each rank's results written once to a rank file that
+the parent deletes as soon as it has read it (and on a failed launch),
+each distinct tensor once, and one that equals a tensor of rank 0's, bit
+for bit, as a reference to it.
 """
+import hashlib
+import math
 import os
+from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as tdist
 
 from lightning_gan_zoo_tpu_torch.config import compose
 from lightning_gan_zoo_tpu_torch.config.registry import instantiate
@@ -36,6 +46,11 @@ FAMILIES = ("dc_gan", "wgan", "wgan_gp", "gan_stability_r1", "hologan",
             "pigan", "anigan")
 BATCH = 4
 RANKS = 2
+#: seconds a launch of ``run_ranks`` (and a CLI test's ranks) may take:
+#: about three times the slowest launch of the tier-1 suite under its six
+#: workers on an 8-core host (75 s, test_torch_sp.py's 2 × 2 grid), and
+#: below test_torch_cli.py's 300-s limit on a CLI subprocess
+DEADLINE = 240
 
 
 def family_batches(cfg, family: str, batch: int, seed: int = 0) -> dict:
@@ -149,34 +164,132 @@ def fed_superstep_job(overrides, tmp, g_state, d_state, images, zs,
     return run_superstep(task, cfg, batches)
 
 
+class _Ref:
+    """A tensor of a rank's results in its rank file: its own blob ``index``
+    or, with ``rank0``, rank 0's."""
+
+    def __init__(self, index: int, rank0: bool = False):
+        self.index, self.rank0 = index, rank0
+
+
+def _map(tree, is_leaf, fn):
+    """``tree`` with each leaf for which ``is_leaf`` holds replaced by
+    ``fn(leaf)``: dicts (of their type, a state_dict's metadata kept),
+    lists and tuples rebuilt, any other value kept as it is."""
+    if is_leaf(tree):
+        return fn(tree)
+    if type(tree) in (dict, OrderedDict):
+        out = type(tree)((k, _map(v, is_leaf, fn)) for k, v in tree.items())
+        if hasattr(tree, "_metadata"):
+            out._metadata = tree._metadata
+        return out
+    if type(tree) in (list, tuple):
+        return type(tree)(_map(v, is_leaf, fn) for v in tree)
+    return tree
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _key(t: torch.Tensor):
+    """What two tensors must share to be one: the digest of their bits,
+    type, dtype, shape and requires_grad (None: a tensor that is kept as
+    it is, with attributes of its own or not strided)."""
+    if t.layout != torch.strided or vars(t):
+        return None
+    return (hashlib.blake2b(_bits(t).numpy(), digest_size=16).digest(),
+            type(t), t.dtype, tuple(t.shape), t.requires_grad)
+
+
+def _pack(results):
+    """This rank's results as written to its file: each distinct tensor
+    once in ``blobs``, and every tensor that equals one of rank 0's, bit
+    for bit, a reference to it. Rank 0's tensors are received through the
+    group's broadcast (those some rank may hold) and compared in place;
+    every rank takes part in every collective, in one order."""
+    blobs, keys, seen = [], [], {}
+
+    def own(t):
+        key = _key(t)
+        for i in seen.get(key, []):
+            if torch.equal(_bits(blobs[i]), _bits(t)):
+                return _Ref(i)
+        if key is not None:
+            seen.setdefault(key, []).append(len(blobs))
+        blobs.append(t)
+        keys.append(key)
+        return _Ref(len(blobs) - 1)
+    skeleton = _map(results, torch.is_tensor, own)
+    box = [keys if dist.rank() == 0 else None]
+    tdist.broadcast_object_list(box, src=0)
+    theirs = {k: j for j, k in enumerate(box[0]) if k is not None}
+    mine = {} if dist.rank() == 0 else {
+        i: theirs[k] for i, k in enumerate(keys) if k in theirs}
+    wanted = [None] * dist.world_size()
+    tdist.all_gather_object(wanted, sorted(set(mine.values())))
+    same = {}
+    for j in sorted(set().union(*wanted)):
+        _, _, dtype, shape, _ = box[0][j]
+        buf = (_bits(blobs[j]) if dist.rank() == 0 else
+               torch.empty(math.prod(shape) * dtype.itemsize,
+                           dtype=torch.uint8))
+        tdist.broadcast(buf, src=0)
+        for i in (i for i, jj in mine.items() if jj == j):
+            if torch.equal(_bits(blobs[i]), buf):
+                same[i] = j
+    skeleton = _map(skeleton, lambda x: isinstance(x, _Ref),
+                    lambda r: _Ref(same[r.index], rank0=True)
+                    if r.index in same else r)
+    return {"skeleton": skeleton,
+            "blobs": [None if i in same else b for i, b in enumerate(blobs)]}
+
+
+def _unpack(files) -> list:
+    """Every rank's results from its file, rank 0's first; each file is
+    deleted as soon as it has been read."""
+    out, rank0 = [], None
+    for path in files:
+        packed = torch.load(path, weights_only=False)
+        path.unlink()
+        blobs = packed["blobs"]
+        rank0 = blobs if rank0 is None else rank0
+        out.append(_map(packed["skeleton"], lambda x: isinstance(x, _Ref),
+                        lambda r: (rank0 if r.rank0 else blobs)[r.index]))
+    return out
+
+
 def _rank_worker(device, out_dir: str, jobs) -> int:
     torch.set_num_threads(2)
     results = {name: fn(*args) for name, fn, args in jobs}
-    torch.save(results, Path(out_dir) / f"rank{dist.rank()}.pt")
+    torch.save(_pack(results), Path(out_dir) / f"rank{dist.rank()}.pt")
     return 0
 
 
 def run_ranks(jobs, out_dir: Path, n: int = RANKS, sp: int = 1,
-              tp: int = 1) -> list:
+              tp: int = 1, deadline: float = DEADLINE) -> list:
     """``jobs`` ((name, function, args) each, the functions at a module's
     top level) on ``n`` gloo ranks of one group, a grid of n/(sp·tp) data
-    × ``sp`` ray ranks × ``tp`` tensor ranks; every rank's results, by
-    name."""
+    × ``sp`` ray ranks × ``tp`` tensor ranks, under ``dist.launch``'s
+    ``deadline``; every rank's results, by name. No rank file is left in
+    ``out_dir``, whether the launch passes or fails."""
     out_dir.mkdir(parents=True, exist_ok=True)
+    files = [out_dir / f"rank{r}.pt" for r in range(n)]
     old = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
                                           "MKL_NUM_THREADS")}
     os.environ.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     try:
         dist.launch(_rank_worker, (str(out_dir), jobs), ["cpu"] * n,
-                    backend="gloo", sp=sp, tp=tp)
+                    backend="gloo", sp=sp, tp=tp, deadline=deadline)
+        return _unpack(files)
     finally:
         for k, v in old.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
-            for r in range(n)]
+        for path in files:
+            path.unlink(missing_ok=True)
 
 
 def overrides_of(family: str):

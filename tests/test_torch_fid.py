@@ -93,6 +93,7 @@ def test_weights_file_loads_calibrated(converted, tmp_path, monkeypatch):
     monkeypatch.setattr(pt_inc, "DEFAULT_WEIGHTS_PATH", tmp_path / "none")
     assert not pt_inc.build(None)[1]
     assert not pt_inc.build(str(tmp_path / "missing.pth"))[1]
+    path.unlink()           # 92 MB: the suite's basetemp keeps no weights
 
 
 @pytest.mark.parametrize("fault,message", [
@@ -114,6 +115,7 @@ def test_weights_loader_names_what_does_not_map(converted, tmp_path, fault,
     torch.save(state, tmp_path / "bad.pth")
     with pytest.raises(ValueError, match=message):
         pt_inc.load_weights(tmp_path / "bad.pth")
+    (tmp_path / "bad.pth").unlink()     # 84 MB, as above
 
 
 def test_random_init_keeps_features_alive():

@@ -56,10 +56,11 @@ from lightning_gan_zoo_tpu_torch.runtime.checkpoint import CheckpointManager
 from lightning_gan_zoo_tpu_torch.runtime.state import (create_train_state,
                                                        full_state)
 from lightning_gan_zoo_tpu_torch.runtime.steps import map_batch, superstep
-from tests.test_torch_dist_families import (BATCH, FAMILIES, family_batches,
-                                            loss_grads, make_task,
-                                            overrides_of, rank_rows,
-                                            run_ranks, run_superstep)
+from tests.test_torch_dist_families import (BATCH, DEADLINE, FAMILIES,
+                                            family_batches, loss_grads,
+                                            make_task, overrides_of,
+                                            rank_rows, run_ranks,
+                                            run_superstep)
 from tests.test_torch_zero import (_jax_init, _port_task, _to_torch,
                                    assert_equal_trees)
 
@@ -848,7 +849,8 @@ def cli_runs(tmp_path_factory):
         out = tmp / f"f{fold}"
         rc = run_network_torch.main(CLI + [
             "num_gpus=2", "num_tp=2", f"train.fold_steps={fold}",
-            f"output_root={out}", "version=v", "--device", "cpu"])
+            f"output_root={out}", "version=v", "--device", "cpu"],
+            deadline=DEADLINE)
         assert rc == 0
         runs[fold] = out / "dc_gan" / "v"
     return runs
