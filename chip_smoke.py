@@ -149,7 +149,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      validation phase's HoloGAN checkpoint with the regressor fitted on
      96 views (48 held out): one trilinear forward per commanded
      azimuth, finite scores; pose MAE, r, identity ratio and seconds
-     printed.
+     printed; then the dc_gan digits recipe (16 px, batch 64, features
+     32, fold_steps 4) for 2 epochs on the 1,797 digits the port ships,
+     written as idx files, with a checkpoint at each validation: finite
+     losses, no kernel launched; digits_score on its last checkpoint with
+     512 samples: a finite IS, 512 samples over the classes, the
+     classifier's held-out accuracy the CPU's 0.9158, and scikit-learn
+     never imported; IS, classes and seconds printed.
  21. state sharding (parallel/sharding.py): (a) HoloGAN through
      run_network_torch.main() as rank 0 of a one-rank NCCL group with
      zero_opt=true fsdp=true (no-ops on one device) equals the run with no
@@ -2843,6 +2849,11 @@ SHAPES_N = (96, 16)
 SHAPES_PIXEL_SHARE = 0.005
 #: the regressor of phase 20's HoloGAN score, fitted at a reduced size
 SCORE_N_TRAIN, SCORE_N_TEST = 96, 48
+#: phase 20's digits: the shipped 1,797 as idx files, and the digits
+#: classifier's held-out accuracy on the CPU (tools/mlp.py is numpy, the
+#: same on both machines)
+DIGITS_ROOT = REPO / "build" / "chip_smoke_digits"
+DIGITS_CPU_ACCURACY = 0.9158
 
 
 def yardsticks_phase():
@@ -2851,8 +2862,8 @@ def yardsticks_phase():
     width 48, which runs the layer loop as the JAX rule says) through the
     CLI across one resolution step, then every parameter's Adam count
     equal to its net's update count; shapes_score on the validation
-    phase's HoloGAN checkpoint with a reduced regressor. Returns each
-    path's launches."""
+    phase's HoloGAN checkpoint with a reduced regressor; the digits
+    yardstick (``digits_yardstick``). Returns each path's launches."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2936,7 +2947,60 @@ def yardsticks_phase():
           f"{out['identity_ratio']}, real-data MAE "
           f"{out['real_regressor_mae_deg']} deg, {out['seconds']} s "
           f"({out['seconds_regressor']} s fitting)")
+    digits_yardstick()
     return {"trilinear": sweep_launches, "siren_trunk": launches}
+
+
+def digits_yardstick():
+    """The dc_gan digits yardstick on the card's machine, which has no
+    scikit-learn: idx files from the shipped digits, the recipe for 2
+    epochs through the CLI with a checkpoint at each validation (no kernel
+    launched), then digits_score on the last checkpoint, its classifier
+    fitted as on the CPU."""
+    import torch
+    from lightning_gan_zoo_tpu_torch.tools import digits_score, yardstick_runs
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DIGITS_ROOT, ignore_errors=True)
+    digits_score.make_digits_dataset(DIGITS_ROOT)
+    argv = yardstick_runs.recipe(
+        yardstick_runs.RUNS["dc_gan"]["overrides"],
+        f"filepaths.mnist_parent_directory={DIGITS_ROOT}",
+        *yardstick_runs.FREE_VALIDATION, "train.num_epochs=2",
+        "val.every_n_epochs=1")
+    trainer, launches, wall, _ = run_main(argv, tag="yardstick_digits")
+    check_2d_run(trainer, "digits", {
+        "train.img_size": 16, "train.channels_img": 1,
+        "train.batch_size": 64, "train.features_gen": 32,
+        "train.features_disc": 32, "train.fold_steps": 4},
+        ("train/d_loss", "train/g_loss"))
+    idle = {"fwd": 0, "bwd": 0}
+    check(launches == {"trilinear": idle, "siren_trunk": idle},
+          f"the digits run launched {launches}; dc_gan runs no kernel")
+    reset_counts()
+    printed = Tee(sys.stdout)
+    with contextlib.redirect_stdout(printed):
+        out = digits_score.main([str(trainer.ckpt.dir), "512", "--json",
+                                 "--device", "cuda"])
+    torch.cuda.synchronize()
+    check(read_counts() == {"trilinear": idle, "siren_trunk": idle},
+          f"digits_score launched {read_counts()}")
+    check("(epoch 1)" in printed.getvalue(),
+          "digits_score did not restore the epoch-1 checkpoint")
+    coverage = out["class_coverage"]
+    check(math.isfinite(out["inception_score_digits"])
+          and sum(coverage.values()) == 512 == out["n"],
+          f"digits_score gave {out}")
+    check(out["classifier_val_accuracy"] == DIGITS_CPU_ACCURACY,
+          f"the digits classifier scored {out['classifier_val_accuracy']}, "
+          f"the CPU {DIGITS_CPU_ACCURACY}")
+    check("sklearn" not in sys.modules, "scikit-learn was imported")
+    print(f"yardsticks: dc_gan digits recipe for 2 epochs on the shipped "
+          f"digits in {wall:.1f} s, no kernel launched; digits_score on "
+          f"its epoch-1 checkpoint: IS {out['inception_score_digits']:.4f}, "
+          f"{sum(1 for n in coverage.values() if n)} of 10 classes, "
+          f"classifier {out['classifier_val_accuracy']} (the CPU's); "
+          f"no scikit-learn; {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:

@@ -1,6 +1,6 @@
 """Classifier-based sample-quality score of a dc_gan trained through the port
-on scikit-learn's digits (counterpart of tools/digits_score.py, which scores
-the JAX package's checkpoints).
+on the 1,797 handwritten digits (counterpart of tools/digits_score.py, which
+scores the JAX package's checkpoints).
 
 The "MNIST Inception Score" protocol with a digits classifier standing in
 for Inception: an MLP classifier (tools/mlp.py, a copy of scikit-learn's
@@ -11,16 +11,19 @@ classifier's 8 × 8 by an antialiased bilinear resize (the JAX tool's
 || p(y))]) (1 = noise, 10 = every class, confidently), the mean max-softmax
 confidence and the count of samples per predicted class.
 
-The digits come from ``sklearn.datasets.load_digits``: scoring, and
-writing the training data (``make_digits_dataset``), need scikit-learn and
-raise without it. z comes from a seeded ``torch.Generator``.
+The digits ship beside this file (``digits.npz``, see ``load_digits``), so
+scoring and writing the training data (``make_digits_dataset``) need no
+scikit-learn. z comes from a seeded ``torch.Generator``.
 
 Usage:
   python -m lightning_gan_zoo_tpu_torch.tools.digits_score \\
       [<ckpt_dir_or_path>|--init] [n_samples] [--json] [--device cuda|cpu]
+  python -m lightning_gan_zoo_tpu_torch.tools.digits_score \\
+      --write-digits <digits.csv.gz>     # remake digits.npz
 """
 from __future__ import annotations
 
+import gzip
 import json
 import sys
 from pathlib import Path
@@ -33,6 +36,8 @@ import torch.nn.functional as F
 from .mlp import MLPClassifier
 
 REPO = Path(__file__).resolve().parents[2]
+#: the 1,797 digits as uint8: images (1797, 8, 8) in [0, 16], labels (1797,)
+DIGITS_FILE = Path(__file__).resolve().with_name("digits.npz")
 
 #: the digits evidence run's model config (docs/TRAINING_EVIDENCE.md)
 OVERRIDES = [
@@ -46,16 +51,32 @@ Z_SEED = 7
 BATCH = 64
 
 
+def write_digits_file(src, path) -> Path:
+    """Write ``path`` from ``src``, the digits as scikit-learn 1.9.0 ships
+    them (``sklearn/datasets/data/digits.csv.gz``: one row per digit, its
+    64 pixels then its label), read as ``sklearn.datasets.load_digits``
+    reads it."""
+    with gzip.open(src, "rt", encoding="utf-8") as f:
+        rows = np.loadtxt(f, delimiter=",")
+    images, labels = rows[:, :-1].reshape(-1, 8, 8), rows[:, -1]
+    if (rows.shape != (1797, 65) or rows.min() < 0 or images.max() > 16
+            or labels.max() > 9 or not np.array_equal(rows, rows.round())):
+        raise ValueError(f"{src} is not the 1,797 8 × 8 digits")
+    np.savez_compressed(path, images=images.astype(np.uint8),
+                        labels=labels.astype(np.uint8))
+    return Path(path)
+
+
 def load_digits():
-    """scikit-learn's 1,797 8 × 8 digits (images in [0, 16], labels)."""
-    try:
-        from sklearn.datasets import load_digits as load
-    except ImportError as e:
-        raise RuntimeError(
-            "the digits yardstick needs scikit-learn's load_digits data, "
-            "and scikit-learn is not installed here") from e
-    d = load()
-    return d.images, d.target
+    """The 1,797 8 × 8 digits, as ``sklearn.datasets.load_digits`` returns
+    them: images float64 (1797, 8, 8) in [0, 16], labels int64.
+
+    They are the test set of the UCI ML "Optical Recognition of Handwritten
+    Digits" (E. Alpaydin, C. Kaynak, 1998; licence CC BY 4.0), as
+    scikit-learn 1.9.0 ships it in ``sklearn/datasets/data/digits.csv.gz``,
+    stored as uint8 in ``DIGITS_FILE`` by ``write_digits_file``."""
+    with np.load(DIGITS_FILE) as f:
+        return f["images"].astype(np.float64), f["labels"].astype(np.int64)
 
 
 def make_digits_dataset(parent) -> Path:
@@ -95,12 +116,15 @@ def reduce_to_8px(img01: torch.Tensor) -> torch.Tensor:
                          antialias=True, align_corners=False)[:, 0]
 
 
-def generate(ckpt: Optional[Path], n: int, device) -> np.ndarray:
+def generate(ckpt: Optional[Path], n: int, device,
+             seed: Optional[int] = None) -> np.ndarray:
     """n generated images in [0, 1], (n, 8, 8) float32: the classifier's
-    input."""
+    input. ``seed`` replaces the config's (42): the untrained generator's
+    weights."""
     from ..config import compose
     from ..config.registry import instantiate
-    cfg = compose(REPO / "conf", OVERRIDES)
+    cfg = compose(REPO / "conf",
+                  [*OVERRIDES, *([f"seed={seed}"] if seed else [])])
     task = instantiate(cfg.model.lm, cfg, None, device=device)
     if ckpt is not None:
         from ..serving.export import load_generator_weights
@@ -131,8 +155,13 @@ def score(clf, imgs: np.ndarray) -> dict:
     }
 
 
-def main(argv: Sequence[str]) -> dict:
+def main(argv: Sequence[str]) -> Optional[dict]:
     argv = list(argv)
+    if argv[:1] == ["--write-digits"]:
+        if len(argv) != 2:
+            sys.exit("usage: digits_score --write-digits <digits.csv.gz>")
+        print(f"wrote {write_digits_file(argv[1], DIGITS_FILE)}")
+        return None
     as_json = "--json" in argv
     argv = [a for a in argv if a != "--json"]
     device = "cuda"

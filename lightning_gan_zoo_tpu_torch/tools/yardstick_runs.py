@@ -66,7 +66,7 @@ RUNS = {
         overrides=recipe(
             FAMILIES["hologan"]["overrides"], "dataset=celeb_a",
             "train.num_epochs=600", "val.every_n_epochs=8")),
-    # dc_gan on scikit-learn's 1,500 + 297 digits at 16 px
+    # dc_gan on the 1,500 + 297 digits (digits_score.DIGITS_FILE) at 16 px
     "dc_gan": dict(
         data=("digits",), family=None, keep=(380,),
         overrides=recipe(
@@ -86,14 +86,6 @@ def card() -> str:
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.CalledProcessError):
         return "no nvidia-smi"
-
-
-def has_sklearn() -> bool:
-    try:
-        import sklearn  # noqa: F401
-        return True
-    except ImportError:
-        return False
 
 
 def make_data(run: dict, root: Path, device) -> list:
@@ -178,7 +170,7 @@ def score_shapes(run, ckpts, n_train, n_test, device, seed=None) -> dict:
     return out
 
 
-def score_digits(ckpts, device) -> dict:
+def score_digits(ckpts, device, seed=None) -> dict:
     from . import digits_score as ds
     clf, acc = ds.train_classifier()
     images, _ = ds.load_digits()
@@ -186,7 +178,7 @@ def score_digits(ckpts, device) -> dict:
            "real_val": ds.score(clf, (images[-ds.N_VAL:] / 16.0).astype(
                np.float32))}
     for name, ckpt in ckpts.items():
-        out[name] = ds.score(clf, ds.generate(ckpt, 512, device))
+        out[name] = ds.score(clf, ds.generate(ckpt, 512, device, seed))
         print(f"dc_gan {name}: {json.dumps(out[name])}", flush=True)
     return out
 
@@ -216,15 +208,10 @@ def main(argv: Sequence[str]) -> dict:
     name, run = argv[0], RUNS[argv[0]]
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit("yardstick_runs: no CUDA device (pass --device cpu)")
-    report = {"run": name, "card": card(), "sklearn": has_sklearn(),
+    report = {"run": name, "card": card(),
               "cut_epochs": int(epochs) if epochs else None,
               "seed": int(seed) if seed else None}
-    print(f"card: {report['card']}; sklearn importable: "
-          f"{report['sklearn']}", flush=True)
-    if run["data"][0] == "digits" and not report["sklearn"]:
-        report["skipped"] = "scikit-learn absent: no digits data"
-        print(json.dumps(report))
-        return report
+    print(f"card: {report['card']}", flush=True)
 
     work = out_dir / name
     shutil.rmtree(work, ignore_errors=True)
@@ -241,7 +228,7 @@ def main(argv: Sequence[str]) -> dict:
                 if (work / "snapshots" / f"epoch_{e}").is_dir()},
              "final": CheckpointManager.find_ckpt(trainer.ckpt.dir)}
     t0 = time.perf_counter()
-    report["scores"] = (score_digits(ckpts, device)
+    report["scores"] = (score_digits(ckpts, device, seed)
                         if run["data"][0] == "digits" else
                         score_shapes(run, ckpts, n_train, n_test, device,
                                      seed))

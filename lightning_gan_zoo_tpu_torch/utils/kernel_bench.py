@@ -30,6 +30,7 @@ from .profile_superstep import card_line
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 #: HoloGAN's resample: 32 views of a 16³×64 volume at its 4,096 points,
 #: warped by the config's view ranges with a random translation
@@ -82,20 +83,23 @@ def trilinear_bound(vox_shape, n: int) -> dict:
     operations per point and channel take a few µs at 67 TFLOP/s."""
     b, d, h, w, c = vox_shape
     nbytes = 4 * (b * d * h * w * c + b * n * c + b * n * 3)
-    return bound(16.0 * b * n * c, nbytes, flops_peak=67e12)
+    return bound(16.0 * b * n * c, nbytes, flops_peak=PEAK_F32_FLOPS)
 
 
 def trunk_bound(b: int, m: int, h: int, layers: int, cin: int = 3,
                 backward: bool = False) -> dict:
-    """Tensor-core work of the trunk: per row, L−1 products of H×H (the
-    forward); the backward recomputes them, passes dh down through them
-    and forms their weight gradients (3×). Bytes: x and the bf16 output
-    (forward), x, the bf16 cotangent and dx (backward); the weights and
-    the per-sample FiLM rows are small beside them."""
-    rows = b * m
-    flops = rows * (layers - 1) * 2.0 * h * h * (3 if backward else 1)
+    """Work of the trunk per row: L−1 bf16 products of H×H on the tensor
+    cores and layer 0's Cin×H in f32 FMAs beside them (the forward); the
+    backward recomputes both, passes dh down through them and forms their
+    weight gradients (3×). The two kinds run on separate units, so the
+    busier one bounds. Bytes: x and the bf16 output (forward), x, the bf16
+    cotangent and dx (backward); the weights and the per-sample FiLM rows
+    are small beside them."""
+    rows, k = b * m, 3 if backward else 1
     nbytes = rows * (cin * 4 + h * 2 + (cin * 4 if backward else 0))
-    return bound(flops, nbytes)
+    return max(bound(rows * (layers - 1) * 2.0 * h * h * k, nbytes),
+               bound(rows * 2.0 * cin * h * k, nbytes, PEAK_F32_FLOPS),
+               key=lambda d: d["bound_ms"])
 
 
 def trilinear_inputs(gen):

@@ -11,7 +11,9 @@ Tolerances:
     of the parameters, atol one float32 step of the parameters; the LR
     schedules: exact up to float rounding;
   * one superstep per family against the JAX package's jitted
-    ``build_superstep``: losses at rtol 1e-4, BatchNorm running statistics
+    ``build_superstep`` (dc_gan also at the digits yardstick's shape: 16
+    px, one channel, on the shipped digits through both MNIST readers):
+    losses at rtol 1e-4, BatchNorm running statistics
     at rtol 1e-4; parameters after the update at atol n_updates × the
     optimizer's largest single step (2·lr for Adam, lr/√(1−α) = 10·lr for
     RMSprop), and the updates themselves within 1e-6 on at least 99 % of
@@ -36,6 +38,7 @@ from lightning_gan_zoo_tpu.config import compose as jax_compose
 from lightning_gan_zoo_tpu.config.registry import instantiate as jax_inst
 from lightning_gan_zoo_tpu.ops import losses as JL
 from lightning_gan_zoo_tpu.runtime.loop import Trainer as JaxTrainer
+from lightning_gan_zoo_tpu.runtime.loop import _dataset_kwargs
 from lightning_gan_zoo_tpu.runtime.optim import build_lr_schedule
 from lightning_gan_zoo_tpu.runtime.state import create_train_state as jax_state
 from lightning_gan_zoo_tpu.runtime.steps import build_superstep
@@ -49,6 +52,7 @@ from lightning_gan_zoo_tpu_torch.runtime import loop
 from lightning_gan_zoo_tpu_torch.runtime.optim import RMSprop, step_lr
 from lightning_gan_zoo_tpu_torch.runtime.state import create_train_state
 from lightning_gan_zoo_tpu_torch.runtime.steps import superstep
+from lightning_gan_zoo_tpu_torch.tools import digits_score
 
 #: the suite runs several files at once (pytest-xdist workers) on a few
 #: cores: two torch threads per worker keep them off each other's cores
@@ -61,6 +65,8 @@ SMALL = ["dataset=synthetic", "precision=32", "calc_fid=False", "~figures",
 RESNET = ["train.img_size=16", "generator.nfilter=4",
           "generator.nfilter_max=8", "discriminator.nfilter=4",
           "discriminator.nfilter_max=8"]
+#: the digits yardstick's data and image size (digits_score.OVERRIDES)
+DIGITS = ["dataset=mnist", "train.img_size=16"]
 CONVERT = {
     "dc": (convert.dcgan_generator_state_dict,
            convert.dcgan_discriminator_state_dict),
@@ -120,6 +126,25 @@ def _nchw(x):
 def _images(shape, seed=3):
     return (np.random.default_rng(seed).normal(size=shape) * 0.5
             ).astype(np.float32)
+
+
+def _superstep_images(cfg, jcfg, n, tmp):
+    """n micro-batches of B images, (n, B, s, s, C): MNIST rows made from
+    the shipped digits, read by both frameworks' readers (equal), or
+    seeded noise."""
+    s = int(cfg.train.img_size)
+    if not str(cfg.dataset["_target_"]).endswith(".MNIST"):
+        return _images((n, B, s, s, 3))
+    parent = tmp / "digits"
+    digits_score.make_digits_dataset(parent)
+    rows = []
+    for c, inst in ((cfg, instantiate), (jcfg, jax_inst)):
+        c.dataset.train["root"] = str(parent)
+        ds = inst(c.dataset.train, **_dataset_kwargs(c))
+        rows.append(ds.load(np.arange(n * B))["image"])
+    assert rows[0].shape == (n * B, s, s, 1)
+    assert np.array_equal(*rows)
+    return rows[0].reshape(n, B, s, s, 1)
 
 
 def _check_stats(module, to_sd, variables, new_state):
@@ -397,7 +422,8 @@ LR = {"dc_gan": (2e-4, 2), "wgan": (5e-5, 10), "wgan_gp": (1e-4, 2),
 @pytest.mark.parametrize("expt,extra", [
     ("dc_gan", []), ("wgan", []), ("wgan_gp", []),
     ("gan_stability_r1", ["train.penalty_precision=32"]),
-    ("gan_stability_r1", ["train.penalty_precision=16"])])
+    ("gan_stability_r1", ["train.penalty_precision=16"]),
+    ("dc_gan", DIGITS)])
 def test_superstep_matches_jax(expt, extra, tmp_path):
     jtask, task, g_vars, d_vars = make_pair(expt, tmp_path, extra)
     cfg = task.cfg
@@ -405,7 +431,7 @@ def test_superstep_matches_jax(expt, extra, tmp_path):
     n_micro, s = df + gf, int(cfg.train.img_size)
     d_tx, g_tx = jtask.configure_optimizers(steps_per_epoch=4)
     st0 = jax_state(g_vars, d_vars, g_tx, d_tx)
-    images = _images((n_micro, B, s, s, 3))
+    images = _superstep_images(cfg, jtask.cfg, n_micro, tmp_path)
     rng = jax.random.PRNGKey(7)
     st1, metrics = jax.jit(build_superstep(jtask, g_tx, d_tx, df, gf))(
         st0, {"image": images, "label": np.zeros((n_micro, B), np.int32)},

@@ -166,3 +166,19 @@ def test_kernel_bounds_at_the_main_paths_shapes():
     assert fwd["bound_by"] == bwd["bound_by"] == "operations"
     assert fwd["bound_ms"] == pytest.approx(0.8338, abs=1e-4)
     assert bwd["bound_ms"] == pytest.approx(2.5014, abs=1e-4)
+
+
+@pytest.mark.parametrize("backward,want,layer0", [(False, 0.8338, 0.3606),
+                                                  (True, 2.5014, 1.0818)])
+def test_trunk_bound_at_45_input_channels(backward, want, layer0):
+    """ANIGAN's displacement trunk (Cin 45): layer 0's 2·45·256 f32
+    operations per row (3× backward) take 0.361 and 1.082 ms at 67 TFLOP/s
+    outside the tensor cores, under the bf16 products' 0.834 and 2.501 ms
+    beside them, so the products bound it as at Cin 3; alone (a one-layer
+    trunk) layer 0 is the bound."""
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    got = kb.trunk_bound(128, 8192, 256, 7, cin=45, backward=backward)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(want, abs=1e-4)
+    alone = kb.trunk_bound(128, 8192, 256, 1, cin=45, backward=backward)
+    assert alone["bound_ms"] == pytest.approx(layer0, abs=1e-4)
