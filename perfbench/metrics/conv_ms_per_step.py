@@ -1,0 +1,9 @@
+"""conv_ms_per_step (ms): card time per superstep in kernels that the
+kernel-class table (trace.KINDS) classes as convolution."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if not t.kernels or t.supersteps <= 0:
+        return None
+    return t.ms_by_kind().get("convolution", 0.0) / t.supersteps
