@@ -50,7 +50,10 @@ The runtime switches, as the JAX Trainer has them:
   * ``save_ckpts_async``: checkpoints finish on a background thread
     (runtime/checkpoint.py); ``fit`` and ``evaluate`` land the last one;
   * ``profile=true``: ``torch.profiler`` over supersteps 2–6, a Chrome
-    trace under ``<run>/trace`` (utils/profiling.py);
+    trace under ``<run>/trace`` (utils/profiling.py) that shows, beside the
+    operators and kernels, the program's ``zoo.`` spans: each superstep
+    and its D and G forward, backward and update, the Trainer's wait for
+    the loader's next stack and its copy to the device;
   * ``debug.fast_dev_run``: one epoch, no folding, a break after the first
     superstep, then one validation;
   * ``debug.verbose_shape``: before training, a table of G's submodules
@@ -110,7 +113,7 @@ from ..figures.image_io import make_grid, unnormalise
 from ..figures.types import FigureContext
 from ..parallel import dist
 from ..utils.logging import ExperimentLogger
-from ..utils.profiling import TraceCapture
+from ..utils.profiling import TraceCapture, span
 from .checkpoint import CheckpointManager
 from .optim import share_update_count
 from .state import create_train_state, full_state
@@ -320,10 +323,12 @@ class Trainer:
         device, and the shape analyses (ANIGAN) as they are."""
         def move(a):
             return torch.from_numpy(a).to(self.device, non_blocking=True)
-        out = {"image": move(batch["image"]).permute(0, 1, 4, 2, 3)
-               .contiguous()}
-        if "shape_analysis" in batch:
-            out["shape_analysis"] = map_batch(move, batch["shape_analysis"])
+        with span("zoo.to_device"):
+            out = {"image": move(batch["image"]).permute(0, 1, 4, 2, 3)
+                   .contiguous()}
+            if "shape_analysis" in batch:
+                out["shape_analysis"] = map_batch(move,
+                                                  batch["shape_analysis"])
         return out
 
     # ------------------------------------------------------ checkpoints
@@ -483,23 +488,32 @@ class Trainer:
             epoch_metrics: Dict[str, list] = {}
             t_epoch = time.perf_counter()
             n_steps = 0
-            for batch in loader.epoch(self.epoch):
-                stack = self._to_device(batch)
-                # fold consecutive supersteps over one loader stack; no
-                # per-step device sync: metrics stay on the device until
-                # the epoch ends
-                for f in range(fold):
-                    metrics = superstep(
-                        self.task, self.state,
-                        map_batch(lambda v: v[f * n_micro:(f + 1) * n_micro],
-                                  stack),
-                        self.disc_freq, self.gen_freq, accum, self.ema_decay)
-                    self.trace.tick()
-                    for k, v in metrics.items():
-                        epoch_metrics.setdefault(f"train/{k}", []).append(v)
-                n_steps += 1
-                if self.fast_dev_run or self._stop_for_rescue(n_steps):
-                    break
+            # iterated by hand so that the wait for the next stack is a
+            # span of its own; closed on every exit, as a for loop would
+            with contextlib.closing(loader.epoch(self.epoch)) as stacks:
+                while True:
+                    with span("zoo.loader_wait"):
+                        batch = next(stacks, None)
+                    if batch is None:
+                        break
+                    stack = self._to_device(batch)
+                    # fold consecutive supersteps over one loader stack; no
+                    # per-step device sync: metrics stay on the device until
+                    # the epoch ends
+                    for f in range(fold):
+                        metrics = superstep(
+                            self.task, self.state,
+                            map_batch(lambda v: v[f * n_micro:
+                                                  (f + 1) * n_micro], stack),
+                            self.disc_freq, self.gen_freq, accum,
+                            self.ema_decay)
+                        self.trace.tick()
+                        for k, v in metrics.items():
+                            epoch_metrics.setdefault(f"train/{k}",
+                                                     []).append(v)
+                    n_steps += 1
+                    if self.fast_dev_run or self._stop_for_rescue(n_steps):
+                        break
             means = {k: float(torch.stack(v).mean())
                      for k, v in epoch_metrics.items()}
             dt = time.perf_counter() - t_epoch   # after the fetch above

@@ -47,6 +47,12 @@ each rank's optimizer steps its blocks, and one all-gather puts them back
 into the full parameters the next micro-step reads (the tp blocks, on a
 tp grid). Under fsdp the full parameters are gathered at the superstep's
 start and freed at its end.
+
+The superstep names its phases on the profiler's timeline
+(utils/profiling.py::span): ``zoo.superstep`` around the whole call, and in
+each phase ``zoo.{d,g}.forward`` and ``zoo.{d,g}.backward`` per micro-step
+and ``zoo.{d,g}.update`` per optimizer step. With no profiler recording a
+span is one flag read.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from typing import Callable, Dict
 import torch
 
 from ..parallel import dist
+from ..utils.profiling import span
 from .optim import optimizer_step
 from .state import TrainState, update_ema
 
@@ -93,10 +100,11 @@ def superstep(task, state: TrainState, batches: Dict[str, torch.Tensor],
     (disc_freq + gen_freq)·accum micro-batches. Returns each metric averaged
     over every micro-step that emitted it (HoloGAN's q_loss over all three)
     and over the ranks, as 0-d tensors left on the device."""
-    with dist.global_draws():
-        metrics = _superstep(task, state, batches, disc_freq, gen_freq,
-                             accum, ema_decay)
-    return dist.average_metrics(metrics)
+    with span("zoo.superstep"):
+        with dist.global_draws():
+            metrics = _superstep(task, state, batches, disc_freq, gen_freq,
+                                 accum, ema_decay)
+        return dist.average_metrics(metrics)
 
 
 def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
@@ -113,6 +121,9 @@ def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
                          else (state.g_opt, state.g_schedule))
         shards = None if sh is None else (sh.d if is_disc else sh.g)
         loss_fn = task.disc_loss if is_disc else task.gen_loss
+        phase = "zoo.d." if is_disc else "zoo.g."
+        forward, backward, update = (phase + "forward", phase + "backward",
+                                     phase + "update")
         net.requires_grad_(True)
         other.requires_grad_(False)
         for _ in range(freq):
@@ -123,33 +134,35 @@ def _superstep(task, state, batches, disc_freq, gen_freq, accum, ema_decay):
                 if task.clips_disc:
                     task.clip_disc()
                 z = task.sample_z(micro["image"].shape[0])
-                with task.autocast():
+                with span(forward), task.autocast():
                     loss, metrics = loss_fn(micro, z, state.extra)
-                (loss / accum).backward()
+                with span(backward):
+                    (loss / accum).backward()
                 state.step += 1
                 state.extra = task.update_extra_after_microstep(state.extra)
                 i += 1
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
                     counts[k] = counts.get(k, 0) + 1
-            ray_partial = dist.take_ray_partial()
-            if shards is None:
-                dist.average_grads(net.parameters(), ray_partial)
-                fill_missing_grads(net)
-            else:
-                shards.reduce_grads(ray_partial)
-                shards.fill_missing_grads()
-                shards.pull()
-            if is_disc:
-                optimizer_step(opt, schedule, state.d_steps)
-                state.d_steps += 1
-            else:
-                optimizer_step(opt, schedule, state.g_steps)
-                state.g_steps += 1
-            if shards is not None:
-                shards.gather_params()
-            if not is_disc and ema_decay > 0.0 and state.g_ema is not None:
-                update_ema(state, task.generator, ema_decay)
+            with span(update):
+                ray_partial = dist.take_ray_partial()
+                if shards is None:
+                    dist.average_grads(net.parameters(), ray_partial)
+                    fill_missing_grads(net)
+                else:
+                    shards.reduce_grads(ray_partial)
+                    shards.fill_missing_grads()
+                    shards.pull()
+                if is_disc:
+                    optimizer_step(opt, schedule, state.d_steps)
+                    state.d_steps += 1
+                else:
+                    optimizer_step(opt, schedule, state.g_steps)
+                    state.g_steps += 1
+                if shards is not None:
+                    shards.gather_params()
+                if not is_disc and ema_decay > 0.0 and state.g_ema is not None:
+                    update_ema(state, task.generator, ema_decay)
     task.generator.requires_grad_(True)
     task.discriminator.requires_grad_(True)
     if sh is not None:

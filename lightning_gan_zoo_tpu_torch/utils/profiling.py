@@ -1,13 +1,32 @@
 """Timing and tracing of the training loop (counterpart of
 lightning_gan_zoo_tpu/utils/profiling.py), on ``torch.profiler``.
 
-  * ``StepTimer``: host wall-clock per step → images/s; the caller
-    synchronises the device before ``stop`` where it times device work.
+  * ``span(name)``: a named range of the program's own timeline. While a
+    profiler records (the benchmark's traced stretch, ``TraceCapture``) it
+    is ``torch.profiler.record_function(name)``, kept and exported by that
+    profiler beside the operators and kernels, on the same clock; else it
+    is one shared no-op context, and a span costs one flag read. It holds
+    and writes nothing itself, and leaves grad mode, autocast and the
+    stream as they are. Spans on a thread the profiler did not start on
+    are not recorded, so the loader's worker thread has none. The
+    vocabulary, each opened on the training thread:
+
+      ``zoo.superstep``    the whole of runtime/steps.py::superstep
+      ``zoo.d.forward``    a D micro-step's loss under autocast (R1's
+      ``zoo.g.forward``    autograd.grad inside D's), and G's
+      ``zoo.d.backward``   a micro-step's ``(loss / accum).backward()``
+      ``zoo.g.backward``
+      ``zoo.d.update``     after a phase's micro-steps: the gradient
+      ``zoo.g.update``     reduction, the zero fill, the optimizer step,
+                           the shard gather and (G) the EMA
+      ``zoo.loader_wait``  the Trainer blocked on the loader's next stack
+      ``zoo.to_device``    the Trainer's copy of one stack to the device
+
   * ``TraceCapture``: ``profile=true`` traces supersteps ``warmup`` to
     ``warmup + span`` (2 and 5 by default) with ``torch.profiler`` (host
-    operators, and the card's kernels where there is one) and writes a Chrome
-    trace, ``<run>/trace/trace.json``, that Perfetto or chrome://tracing
-    opens.
+    operators, the spans above, and the card's kernels where there is one)
+    and writes a Chrome trace, ``<run>/trace/trace.json``, that Perfetto or
+    chrome://tracing opens.
   * ``device_op_times`` and ``device_time_ms`` read such a trace: the
     card's kernel events by name, and the busy time as the union of their
     intervals (kernels on several streams overlap, so a sum would count
@@ -15,40 +34,27 @@ lightning_gan_zoo_tpu/utils/profiling.py), on ``torch.profiler``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
-import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, Tuple
 
-import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
 
 
-class StepTimer:
-    def __init__(self):
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
+#: what ``span`` returns while no profiler records
+_OFF = contextlib.nullcontext()
 
-    def start(self):
-        self._t0 = time.perf_counter()
 
-    def stop(self) -> float:
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
-
-    def summary(self, images_per_step: int, skip_first: int = 1) -> dict:
-        """Throughput stats, excluding the first ``skip_first`` steps."""
-        ts = np.asarray(self.times[skip_first:] or self.times)
-        mean = float(ts.mean()) if len(ts) else float("nan")
-        return {
-            "steps": len(self.times),
-            "mean_step_s": mean,
-            "p50_step_s": float(np.median(ts)) if len(ts) else float("nan"),
-            "images_per_sec": images_per_step / mean if mean > 0 else 0.0,
-        }
+def span(name: str):
+    """A context naming one range of the program's timeline: a
+    ``record_function`` while a profiler records on this thread, else the
+    shared no-op context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def union_us(intervals: Iterable[Tuple[float, float]]) -> float:

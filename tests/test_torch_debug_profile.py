@@ -2,8 +2,8 @@
 run_network_torch.py on the CPU at tiny widths: ``debug.fast_dev_run``
 (exactly one superstep and one validation), ``debug.verbose_shape`` (the
 table of G's submodules and their output shapes), ``profile=true`` (a
-Chrome trace under <run>/trace, parsed by utils/profiling.py); and the
-trace readers on a hand-written trace."""
+Chrome trace under <run>/trace, parsed by utils/profiling.py, that shows
+the program's spans); and the trace readers on a hand-written trace."""
 import json
 import re
 
@@ -106,6 +106,30 @@ def test_profile_writes_and_parses_a_trace(tmp_path, capsys):
     assert profiling.device_time_ms(trace_dir) == 0.0
 
 
+def test_profile_trace_holds_the_trainer_spans(tmp_path):
+    """The traced supersteps (the 4th to the 8th of 12, six an epoch, one
+    loader stack each) show the program's spans as the Chrome trace's user
+    annotations: each superstep and its phases, the Trainer's copy of each
+    stack to the device and its wait for each, and for the end of epoch 0
+    (the sixth wait)."""
+    assert run_network_torch.main(
+        DC + ["train.num_epochs=2", "profile=true", f"output_root={tmp_path}",
+              "version=v"]) == 0
+    trace = tmp_path / "dc_gan" / "v" / "trace" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    count = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            count[e["name"]] = count.get(e["name"], 0) + 1
+    assert {n: count.get(n) for n in (
+        "zoo.loader_wait", "zoo.to_device", "zoo.superstep", "zoo.d.forward",
+        "zoo.d.backward", "zoo.d.update", "zoo.g.forward", "zoo.g.backward",
+        "zoo.g.update")} == {
+        "zoo.loader_wait": 6, "zoo.to_device": 5, "zoo.superstep": 5,
+        "zoo.d.forward": 5, "zoo.d.backward": 5, "zoo.d.update": 5,
+        "zoo.g.forward": 5, "zoo.g.backward": 5, "zoo.g.update": 5}
+
+
 def test_trace_readers_union_the_kernels(tmp_path):
     """Kernels on two streams overlap: the busy time is their union, the
     per-name times their sums; host events are not counted."""
@@ -140,12 +164,3 @@ def test_trace_capture_window_and_close(tmp_path):
         off.tick()
     off.close()
     assert not (tmp_path / "c").exists()
-
-
-def test_step_timer_summary():
-    timer = profiling.StepTimer()
-    timer.times = [5.0, 0.5, 0.5, 1.0]
-    s = timer.summary(images_per_step=10)
-    assert s["steps"] == 4 and s["p50_step_s"] == 0.5
-    assert s["mean_step_s"] == pytest.approx(2 / 3)
-    assert s["images_per_sec"] == pytest.approx(15.0)
