@@ -32,6 +32,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      timed against plain at π-GAN's shape and at 45 input channels, and
      the backward's device time split by the kernels it launches
      (torch.profiler);
+  4b. the rgb/α head kernels against their plain version under the bf16
+     policy, at π-GAN's fine and coarse passes (B=128, M=8192 and 4096,
+     256 rays, H=256, with α), at ANIGAN's (no α), at width 128, at a
+     small shape whose blocks take several tiles, and at 999 rows a sample
+     (a partial last tile; B=128 with α, so that a block walks four tiles,
+     and B=3 at width 128 without α); forward within 2⁻⁷
+     absolute (and the share of outputs that differ at all), every
+     gradient group within 0.01 of its max|ref|, both directions
+     bit-identical across two calls; then forward, backward and forward +
+     backward timed against plain beside their bound at the three main-path
+     shapes, and the backward's device time split by its kernels;
   5. the HoloGAN main path: run_network_torch.main() trains HoloGAN at the
      config's full width (G in_planes 64, D out_planes 64, noise 128, batch
      32, 64 px, bf16) for 4 supersteps on synthetic data; the losses must be
@@ -65,9 +76,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      clamped to the 512 images), its SampleGrid figure drawn at every
      validation (the AniganTurntable that machine=small adds is left out:
      π-GAN's data has no shape analyses); per epoch the losses must be
-     finite; the trunk launch counts must be exactly what the path
-     implies, and the trained generator through the kernels must match its
-     plain-trunk twin;
+     finite; the trunk and head launch counts must be exactly what the
+     path implies (one head per field evaluation: at 16 px 4 forward and 1
+     backward a superstep, read from the counters around the second
+     superstep), and the trained generator through the kernels must match
+     its twin with the trunk and head layer by layer, both as an image and
+     as the field's α and rgb on random points;
   8. dc_gan on MNIST-format data: idx files of procedural digits written
      with numpy under build/, 1 channel, 64 px, batch 128, features 64,
      bf16, G weight EMA 0.999, its SampleGrid and Interpolation figures
@@ -89,8 +103,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      procedural analysed images written with numpy under build/ (64 px, an
      icosphere mesh of 642 vertices and 1,280 faces per image,
      data/procedural.py): per epoch d_loss, g_loss, r1 and silhouette must
-     be finite; every parameter on the card; both trunks' launches exactly
-     what the path implies (each field evaluation runs two trunks); the
+     be finite; every parameter on the card; both trunks' launches and the
+     head's exactly what the path implies (each field evaluation runs two
+     trunks and one head, without α); the
      trained generator through the kernels must match its plain-trunk twin
      on analysed inputs; FullShapeAnalysis, SampleGrid and AniganTurntable
      land under figures/epoch_<n>/ every epoch;
@@ -101,7 +116,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (machine=small, from its seed) exported with
      serving/export.py on the card, default (z, seed), pose, dynamic-batch
      and bf16; each .pt2 loaded back holds one kernel node per kernel call
-     and launches the kernel once per node; the pose programs equal eager
+     (π-GAN one trunk and one head node per field evaluation) and
+     launches each kernel once per node; the pose programs equal eager
      generation (HoloGAN torch.equal, π-GAN within 2⁻⁸), the default ones
      repeat for one seed and move with another, the dynamic ones serve
      batches 1, 8 and 32; artifact MB and ms per batch of 8 and 32 (CUDA
@@ -252,6 +268,22 @@ TRUNK_SOURCE = "lightning_gan_zoo_tpu_torch/csrc/siren_trunk.cu"
 TRUNK_REPLACES = {
     "fwd": "lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py:220",
     "bwd": "lightning_gan_zoo_tpu/ops/pallas/siren_trunk.py:271"}
+#: The head against its plain version (ops/siren_head.py). The kernels sum
+#: the product and the linears in another order than cuBLAS, so a
+#: pre-activation or a linear's output can round to the neighbouring bf16
+#: value; a sigmoid output, in [0, 1], then moves by at most two bf16
+#: steps at 1.0. The backward's groups are sums over up to a million rows,
+#: held as the trunk's are.
+HEAD_FWD_ATOL = 2.0 ** -7
+HEAD_BWD_RTOL = 0.01
+HEAD_SOURCE = "lightning_gan_zoo_tpu_torch/csrc/siren_head.cu"
+#: width 128, and a small batch whose blocks walk several tiles each
+HEAD_H128 = dict(b=3, m=1280, rays=40, h=128, alpha=True)
+HEAD_SMALL = dict(b=2, m=4096, rays=128, h=256, alpha=True)
+#: rows that are not whole 64-row tiles: 999 a sample, 111 rays of 9 (333
+#: of 3), the last tile 39 rows
+HEAD_RAGGED = dict(b=128, m=999, rays=111, h=256, alpha=True)
+HEAD_RAGGED_H128 = dict(b=3, m=999, rays=333, h=128, alpha=False)
 TRUNK_RAGGED = dict(b=3, m=999, h=256, layers=7, n_film=1, unfilmed=True)
 TRUNK_CIN45_RAGGED = dict(b=3, m=999, h=256, layers=7, n_film=1,
                           unfilmed=True, cin=45)
@@ -417,8 +449,10 @@ class Tee(io.StringIO):
 
 
 def kernel_counters():
-    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk, trilinear
-    return {"trilinear": trilinear, "siren_trunk": siren_trunk}
+    from lightning_gan_zoo_tpu_torch.ops.cuda import (siren_head,
+                                                      siren_trunk, trilinear)
+    return {"trilinear": trilinear, "siren_trunk": siren_trunk,
+            "siren_head": siren_head}
 
 
 def reset_counts():
@@ -436,7 +470,9 @@ def run_main(argv, counter=None, tag="smoke", trainer_cls=None):
     0 just before and read just after, output under
     build/chip_smoke_output/<tag>. Returns (trainer, launches of
     ``counter``'s kernel, wall s, printed text); ``counter`` None returns
-    the launches of every kernel (the 2D paths run none)."""
+    the launches of every kernel (the 2D paths run none). The trainer's
+    ``counts_at_ticks`` holds every kernel's counts read after each
+    superstep (``superstep_launches``)."""
     import torch
     import run_network_torch
     from lightning_gan_zoo_tpu_torch.runtime import loop
@@ -448,6 +484,13 @@ def run_main(argv, counter=None, tag="smoke", trainer_cls=None):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             trainers.append(self)
+            self.counts_at_ticks = []
+            tick = self.trace.tick
+
+            def counted_tick():
+                tick()
+                self.counts_at_ticks.append(read_counts())
+            self.trace.tick = counted_tick
 
     original = loop.Trainer
     loop.Trainer = RecordedTrainer
@@ -471,6 +514,14 @@ def run_main(argv, counter=None, tag="smoke", trainer_cls=None):
     if counter is not None:
         launches = launches[counter.__name__.rsplit(".", 1)[-1]]
     return trainers[0], launches, wall, printed.getvalue()
+
+
+def superstep_launches(trainer, name):
+    """Kernel ``name``'s launches in the run's second superstep, read from
+    its counters after the first and the second (both in the first epoch,
+    with nothing launched between them but the superstep)."""
+    a, b = (trainer.counts_at_ticks[i][name] for i in (0, 1))
+    return {k: b[k] - a[k] for k in a}
 
 
 def figure_calls(trainer) -> int:
@@ -780,6 +831,64 @@ def trunk_timings(gen, shape):
     return t
 
 
+HEAD_GROUPS = ("dx", "ddirs", "dW", "db", "dgamma", "dbeta", "dW_rgb",
+               "db_rgb", "dw_alpha", "db_alpha")
+
+
+def head_compare(name, gen, shape):
+    import torch
+    from lightning_gan_zoo_tpu_torch.ops import siren_head as ph
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_head as sh
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    args, cot = kb.head_inputs(gen, **shape)
+    outs = sh.launch_forward(*args)
+    want = [t for t in ph.head_forward(*args) if t is not None]
+    got = list(outs[:len(want)])
+    fwd_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    fwd_differ = float(sum(int((g != w).sum()) for g, w in zip(got, want))
+                       / sum(w.numel() for w in want))
+    fwd_again = all(map(torch.equal, outs, sh.launch_forward(*args)))
+    bargs = kb.head_backward_args(args, outs, cot)
+    gb = sh.launch_backward(*bargs)
+    bwd_again = all(map(torch.equal, gb, sh.launch_backward(*bargs)))
+    wb = ph.head_backward(*bargs)
+    torch.cuda.synchronize()
+    rel = {n: float((g.float() - w.float()).abs().max())
+           / max(float(w.float().abs().max()), 1e-30)
+           for n, g, w in zip(HEAD_GROUPS, gb, wb) if w is not None}
+    print(f"head {name} {shape}: fwd max|err| {fwd_err:.3e} (limit "
+          f"{HEAD_FWD_ATOL:g}), share of outputs that differ from plain "
+          f"{fwd_differ:.3e}; bwd max|err|/max|ref| "
+          + " ".join(f"{n} {r:.2e}" for n, r in rel.items())
+          + f" (limit {HEAD_BWD_RTOL:g}); bit-identical across two calls: "
+          f"fwd {fwd_again}, bwd {bwd_again}", flush=True)
+    check(fwd_err <= HEAD_FWD_ATOL, f"head {name} forward error {fwd_err}")
+    check(fwd_again, f"head {name} forward differs between two calls")
+    check(bwd_again, f"head {name} backward differs between two calls")
+    for n, r in rel.items():
+        check(r <= HEAD_BWD_RTOL, f"head {name} {n} error {r}")
+    return fwd_err, max(rel.values())
+
+
+def head_timings(gen, shape):
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    args, cot = kb.head_inputs(gen, **shape)
+    t = kb.head_times(args, cot)
+    card = card_line()
+    dims = {k: shape[k] for k in ("b", "m", "h", "alpha")}
+    for k in ("fwd", "bwd", "fwd_bwd"):
+        b = kb.head_bound(**dims, backward=k == "bwd") if k != "fwd_bwd" \
+            else None
+        print(f"head time {k}: kernel {t[k]:.4f} ms (median of 20), plain "
+              f"{t[k + '_plain']:.4f} ms (median of 5)"
+              + (f", bound {b['bound_ms']:.4f} ms ({b['bound_by']})" if b
+                 else "") + f" (device time, {shape}; {card})", flush=True)
+    t["bwd_split"] = kb.head_backward_split(args, cot)
+    print_split("head backward", t["bwd_split"], card)
+    return t
+
+
 def pigan_plan(cfg, n):
     """(batch, accumulation, fold, supersteps) of each epoch over ``n``
     images, from the config: the variable_batch_size and accumulation
@@ -841,19 +950,29 @@ def print_nerf_epochs(trainer, plan, name, keys):
 def pigan_main_path():
     import copy
     import torch
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_head as sh
     from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
 
     trainer, launches, wall, _ = run_main(PIGAN_ARGV, st, "pigan")
+    heads = read_counts()["siren_head"]
+    head_per = superstep_launches(trainer, "siren_head")
     cfg, task = trainer.cfg, trainer.task
     plan = pigan_plan(cfg, int(cfg.dataset.n))
     want, per_superstep, micro = nerf_launches(trainer, plan, trunks=1)
     print(f"pigan main path: plan (batch, accum, fold, supersteps) per "
           f"epoch {plan}; {micro[0]} D and {micro[1]} G micro-steps in "
           f"{wall:.1f} s; trunk launches {launches} (expected {want}, "
-          f"{figure_calls(trainer)} figure calls per validation)")
+          f"{figure_calls(trainer)} figure calls per validation); head "
+          f"launches {heads} (expected the same: one per field evaluation), "
+          f"{head_per} in the second superstep at 16 px (expected "
+          f"{per_superstep})")
     check(launches["fwd"] > 0 and launches["bwd"] > 0,
           "the pigan main path launched no trunk kernel")
     check(launches == want, f"trunk launch counts {launches} != {want}")
+    check(heads == want, f"head launch counts {heads} != {want}")
+    check(head_per == per_superstep == {"fwd": 4, "bwd": 1},
+          f"head launches a superstep at 16 px {head_per}, expected "
+          f"{per_superstep} and 4 forward, 1 backward")
     nc = cfg.nerf
     check(int(nc.siren_dim_hidden) == 256 and int(nc.siren_num_layers) == 6
           and int(cfg.model.noise_dim) == 128
@@ -874,6 +993,7 @@ def pigan_main_path():
                       ("SampleGrid.png",), trainer)
 
     # the trained generator through the kernels against its plain twin
+    # (fused = False: the trunk's and the head's layers, op by op)
     twin = copy.deepcopy(task.generator)
     twin.nerf_renderer.rad_field.siren.fused = False
     gen = torch.Generator("cuda").manual_seed(5)
@@ -882,19 +1002,47 @@ def pigan_main_path():
     views[:, 0] = torch.deg2rad(torch.tensor([225.0, 250.0, 280.0, 315.0]))
     views[:, 2] = 1.0
     with torch.no_grad(), task.autocast():
-        before = st.FWD_LAUNCHES
+        before, head_before = st.FWD_LAUNCHES, sh.FWD_LAUNCHES
         img = task.generator(z, view_in=views, train=False)
         check(st.FWD_LAUNCHES - before == 2, "G did not run the trunk kernel")
+        check(sh.FWD_LAUNCHES - head_before == 2,
+              "G did not run the head kernel")
         img_plain = twin(z, view_in=views, train=False)
         check(st.FWD_LAUNCHES - before == 2, "the twin ran the trunk kernel")
+        check(sh.FWD_LAUNCHES - head_before == 2,
+              "the twin ran the head kernel")
     check(tuple(img.shape) == (4, 64, 64, 4), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "generated image not finite")
     err = float((img - img_plain).abs().max())
-    print(f"trained pigan G, bf16, kernel vs plain trunk: max|err| "
-          f"{err:.3e} (limit {PIGAN_TWIN_ATOL:g})")
+    print(f"trained pigan G, bf16, kernels vs plain trunk and head: "
+          f"max|err| {err:.3e} (limit {PIGAN_TWIN_ATOL:g})")
     check(err <= PIGAN_TWIN_ATOL,
-          f"G through the trunk kernels disagrees with plain: {err}")
-    return launches, per_superstep
+          f"G through the trunk and head kernels disagrees with plain: {err}")
+    # the trained field itself, whose α and rgb the image composites: the
+    # kernels against the layers on points and directions that reach every
+    # output, so that this check sees the head whatever the image shows
+    field = task.generator.nerf_renderer.rad_field
+    pts = torch.rand(4, 256, 32, 3, generator=gen, device="cuda") * 2 - 1
+    dirs = torch.randn(4, 256, 3, generator=gen, device="cuda")
+    with torch.no_grad(), task.autocast():
+        head_before = sh.FWD_LAUNCHES
+        got = field(pts, dirs, z)
+        ref = twin.nerf_renderer.rad_field(pts, dirs, z)
+        check(sh.FWD_LAUNCHES - head_before == 1,
+              "the field and its twin did not run the head kernel once")
+    ferr = max(float((g.float() - r.float()).abs().max())
+               for g, r in zip(got, ref))
+    differ = (sum(int((g != r).sum()) for g, r in zip(got, ref))
+              / sum(r.numel() for r in ref))
+    print(f"trained pigan field (4 x 256 rays x 32 points), bf16, kernels "
+          f"vs plain trunk and head: α and rgb max|err| {ferr:.3e} (limit "
+          f"{PIGAN_TWIN_ATOL:g}), share of outputs that differ "
+          f"{differ:.3e}; α mean {float(ref[0].float().mean()):.3e}, "
+          f"share of image values that differ "
+          f"{float((img != img_plain).float().mean()):.3e}")
+    check(ferr <= PIGAN_TWIN_ATOL,
+          f"the field through the kernels disagrees with plain: {ferr}")
+    return launches, per_superstep, heads, head_per
 
 def anigan_data():
     """The analysed data's config overrides (written once, under build/)."""
@@ -910,9 +1058,22 @@ def anigan_data():
 
 def check_anigan_run(trainer, launches, wall, plan, name):
     """The width, the launches, the losses and the parameters of an
-    ANIGAN run; returns its launches per superstep."""
+    ANIGAN run; returns its trunk launches per superstep, and the head's
+    launches in the run and in its second superstep, as the counter read
+    them. The head runs once per field evaluation, half the trunks'
+    launches."""
+    heads = read_counts()["siren_head"]
+    head_per = superstep_launches(trainer, "siren_head")
     cfg, task = trainer.cfg, trainer.task
     want, per_superstep, micro = nerf_launches(trainer, plan, trunks=2)
+    want_heads = {k: v // 2 for k, v in want.items()}
+    want_per = {k: v // 2 for k, v in per_superstep.items()}
+    print(f"{name}: head launches {heads} (expected {want_heads}), "
+          f"{head_per} in the second superstep (expected {want_per})")
+    check(heads == want_heads, f"{name} head launch counts {heads} != "
+          f"{want_heads}")
+    check(head_per == want_per, f"{name} head launches a superstep "
+          f"{head_per} != {want_per}")
     print(f"{name}: plan (batch, accum, fold, supersteps) per epoch {plan}; "
           f"{micro[0]} D and {micro[1]} G micro-steps in {wall:.1f} s; trunk "
           f"launches {launches} (expected {want}, two trunks per field "
@@ -938,7 +1099,7 @@ def check_anigan_run(trainer, launches, wall, plan, name):
         check_figures(trainer.logging_dir / "figures" / f"epoch_{e}",
                       ("SampleGrid.png", "FullShapeAnalysis.png",
                        "AniganTurntable.gif"), trainer)
-    return per_superstep
+    return per_superstep, heads, head_per
 
 
 def anigan_main_path(data):
@@ -947,6 +1108,7 @@ def anigan_main_path(data):
     import copy
     import torch
     from lightning_gan_zoo_tpu_torch.config.registry import instantiate
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_head as sh
     from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
     from lightning_gan_zoo_tpu_torch.runtime.loop import _dataset_kwargs
 
@@ -958,7 +1120,8 @@ def anigan_main_path(data):
     check([p[:3] for p in plan] == [(128, 1, 2), (32, 1, 8), (8, 4, 8)],
           f"unexpected schedule {plan}")
     check(task.training_resolution == 64, "training did not reach 64 px")
-    per_superstep = check_anigan_run(trainer, launches, wall, plan, "anigan")
+    per_superstep, heads, head_per = check_anigan_run(trainer, launches,
+                                                      wall, plan, "anigan")
 
     # the trained generator on analysed inputs, through the kernels and
     # through its plain-trunk twin
@@ -972,20 +1135,24 @@ def anigan_main_path(data):
     z = task.sample_z(4, generator=torch.Generator("cuda").manual_seed(5))
     with torch.no_grad(), task.autocast():
         kw = task.deformation_inputs(sa)
-        before = st.FWD_LAUNCHES
+        before, head_before = st.FWD_LAUNCHES, sh.FWD_LAUNCHES
         img = task.generator(z, train=False, **kw)
         check(st.FWD_LAUNCHES - before == 4, "G did not run both trunks' "
               "kernels in both passes")
+        check(sh.FWD_LAUNCHES - head_before == 2,
+              "G did not run the head kernel in both passes")
         img_plain = twin(z, train=False, **kw)
         check(st.FWD_LAUNCHES - before == 4, "the twin ran the trunk kernel")
+        check(sh.FWD_LAUNCHES - head_before == 2,
+              "the twin ran the head kernel")
     check(tuple(img.shape) == (4, 64, 64, 4), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "generated image not finite")
     err = float((img - img_plain).abs().max())
-    print(f"trained anigan G (TPS), bf16, kernels vs plain trunks: max|err| "
-          f"{err:.3e} (limit {PIGAN_TWIN_ATOL:g})")
+    print(f"trained anigan G (TPS), bf16, kernels vs plain trunks and head: "
+          f"max|err| {err:.3e} (limit {PIGAN_TWIN_ATOL:g})")
     check(err <= PIGAN_TWIN_ATOL,
           f"G through the trunk kernels disagrees with plain: {err}")
-    return launches, per_superstep
+    return launches, per_superstep, heads, head_per
 
 
 def anigan_displacement_path(data):
@@ -1001,10 +1168,10 @@ def anigan_displacement_path(data):
           and field.siren.layers[0].kernel.shape[0] == 45
           and field.alpha_siren.layers[0].kernel.shape[0] == 45,
           "the displacement run's trunks do not take 45 channels")
-    check_anigan_run(trainer, launches, wall,
-                     pigan_plan(trainer.cfg, ANIGAN_IMAGES),
-                     "anigan displacement")
-    return launches
+    _, heads, _ = check_anigan_run(trainer, launches, wall,
+                                   pigan_plan(trainer.cfg, ANIGAN_IMAGES),
+                                   "anigan displacement")
+    return launches, heads
 
 
 # ------------------------------------------------------------ 2D families
@@ -1226,10 +1393,10 @@ def r1_main_path():
 #: phase 14's families: HoloGAN from the validation phase's checkpoint,
 #: π-GAN at machine=small from its seed
 SERVING = (("hologan", ["+expt=hologan", "dataset=synthetic",
-                        "calc_fid=False"], "trilinear"),
+                        "calc_fid=False"], ("trilinear",)),
            ("pigan", ["+expt=pigan", "machine=small", "dataset=synthetic",
                       "calc_fid=False", "~figures.anigan_turntable"],
-            "siren_trunk"))
+            ("siren_trunk", "siren_head")))
 #: a pose inside both families' ranges: azimuth 250°, elevation 80°
 SERVE_VIEW = [math.radians(250), math.radians(80), 1.0, 0.0, 0.0, 0.0]
 #: the validation phase's run directory (its checkpoint feeds phase 14)
@@ -1251,7 +1418,7 @@ def serving_phase():
     card = card_line()
     reset_counts()
     counts = kernel_counters()
-    for family, argv, kernel in SERVING:
+    for family, argv, kernels in SERVING:
         ckpt = str(HOLOGAN_FID_RUN / "ckpts") if family == "hologan" else None
         cfg = compose(REPO / "conf", argv)
         eager = instantiate(cfg.model.lm, cfg, str(out), device="cuda")
@@ -1263,7 +1430,6 @@ def serving_phase():
         views = torch.tensor([SERVE_VIEW], device="cuda").repeat(8, 1)
         views[:, 0] += torch.arange(8, device="cuda") * 0.1
         seed = torch.tensor(3, device="cuda")
-        counter = counts[kernel]
         for variant, kw in (("default", {}), ("pose", {"pose": True}),
                             ("dynamic", {"dynamic_batch": True}),
                             ("bf16", {"dtype": "bf16"})):
@@ -1274,8 +1440,10 @@ def serving_phase():
             export_s = time.perf_counter() - t0
             program = torch.export.load(str(path))
             nodes = ex.kernel_nodes(program)
-            per_call = nodes.get(f"lgzt.{kernel}_fwd.default", 0)
-            check(per_call > 0 and len(nodes) == 1,
+            per_call = {k: nodes.get(f"lgzt.{k}_fwd.default", 0)
+                        for k in kernels}
+            check(all(per_call.values()) and len(nodes) == len(kernels)
+                  and len(set(per_call.values())) == 1,
                   f"{family} {variant}: kernel nodes {nodes}")
             check("lightning_gan_zoo_tpu_torch.ops.cuda" in sidecar["call"]
                   and sidecar["device"] == "cuda"
@@ -1283,13 +1451,13 @@ def serving_phase():
                   f"{family} {variant} sidecar {sidecar}")
             g = program.module()
             args = (z8, views, seed) if variant == "pose" else (z8, seed)
-            before = counter.FWD_LAUNCHES
+            before = {k: counts[k].FWD_LAUNCHES for k in kernels}
             with torch.no_grad():
                 img = g(*args)
             torch.cuda.synchronize()
-            check(counter.FWD_LAUNCHES - before == per_call,
-                  f"{family} {variant}: {counter.FWD_LAUNCHES - before} "
-                  f"launches for {per_call} kernel nodes")
+            ran = {k: counts[k].FWD_LAUNCHES - before[k] for k in kernels}
+            check(ran == per_call, f"{family} {variant}: {ran} launches for "
+                  f"{per_call} kernel nodes")
             check(tuple(img.shape) == (8, 3 if family == "hologan" else 4,
                                        int(cfg.train.img_size),
                                        int(cfg.train.img_size))
@@ -1342,10 +1510,8 @@ def serving_phase():
         torch.cuda.empty_cache()
     launches = read_counts()
     print(f"serving launches {launches}")
-    check(launches["trilinear"]["fwd"] > 0
-          and launches["siren_trunk"]["fwd"] > 0
-          and launches["trilinear"]["bwd"] == 0
-          and launches["siren_trunk"]["bwd"] == 0,
+    check(all(launches[k]["fwd"] > 0 and launches[k]["bwd"] == 0
+              for k in ("trilinear", "siren_trunk", "siren_head")),
           f"serving launches {launches}")
     return launches
 
@@ -2974,7 +3140,7 @@ def digits_yardstick():
         "train.features_disc": 32, "train.fold_steps": 4},
         ("train/d_loss", "train/g_loss"))
     idle = {"fwd": 0, "bwd": 0}
-    check(launches == {"trilinear": idle, "siren_trunk": idle},
+    check(all(v == idle for v in launches.values()),
           f"the digits run launched {launches}; dc_gan runs no kernel")
     reset_counts()
     printed = Tee(sys.stdout)
@@ -2982,7 +3148,7 @@ def digits_yardstick():
         out = digits_score.main([str(trainer.ckpt.dir), "512", "--json",
                                  "--device", "cuda"])
     torch.cuda.synchronize()
-    check(read_counts() == {"trilinear": idle, "siren_trunk": idle},
+    check(all(v == idle for v in read_counts().values()),
           f"digits_score launched {read_counts()}")
     check("(epoch 1)" in printed.getvalue(),
           "digits_score did not restore the epoch-1 checkpoint")
@@ -3024,20 +3190,30 @@ def main() -> int:
     tt = trunk_timings(gen, kb.TRUNK_SLICE)
     tt45 = trunk_timings(gen, kb.TRUNK_CIN45)
     torch.cuda.empty_cache()
+    head_errs = [head_compare(name, gen, shape) for name, shape in (
+        ("fine", kb.HEAD_SLICE), ("coarse", kb.HEAD_COARSE),
+        ("anigan", kb.HEAD_ANIGAN), ("h128", HEAD_H128),
+        ("small", HEAD_SMALL), ("ragged", HEAD_RAGGED),
+        ("ragged_h128", HEAD_RAGGED_H128))]
+    ht = {name: head_timings(gen, shape) for name, shape in (
+        ("fine", kb.HEAD_SLICE), ("coarse", kb.HEAD_COARSE),
+        ("anigan", kb.HEAD_ANIGAN))}
+    torch.cuda.empty_cache()
     tri_launches, tri_per = hologan_main_path()
     inception_on_card()
     val_launches, eval_launches = validation_phase()
     torch.cuda.empty_cache()
-    trunk_launches, trunk_per = pigan_main_path()
+    trunk_launches, trunk_per, head_launches, head_per = pigan_main_path()
     for phase in (dcgan_main_path, wgan_main_path, wgan_gp_main_path,
                   r1_main_path):
         torch.cuda.empty_cache()
         phase()
     torch.cuda.empty_cache()
     data = anigan_data()
-    anigan_launches, anigan_per = anigan_main_path(data)
+    anigan_launches, anigan_per, anigan_heads, anigan_head_per = \
+        anigan_main_path(data)
     torch.cuda.empty_cache()
-    disp_launches = anigan_displacement_path(data)
+    disp_launches, disp_heads = anigan_displacement_path(data)
     extras = {}
     for name, phase in (("serving", serving_phase), ("rescue", rescue_phase),
                         ("async_profile", async_profile_phase),
@@ -3125,6 +3301,26 @@ def main() -> int:
     kernels[-1]["max_rel_err"] = max(e[2] for e in tr_errs)
     kernels[-1]["split_ms"] = tt["bwd_split"]
     kernels[-1]["cin45"]["split_ms"] = tt45["bwd_split"]
+    head_dims = {k: kb.HEAD_SLICE[k] for k in ("b", "m", "h", "alpha")}
+    head_paths = {"pigan": head_launches, "anigan": anigan_heads,
+                  "anigan_displacement": disp_heads,
+                  "pigan_serving": extras["serving"]["siren_head"]}
+    kernels += [
+        {"name": f"siren_head_{k}", "route": "cuda", "source": HEAD_SOURCE,
+         "replaces": None,
+         "launches": sum(p[k] for p in head_paths.values()),
+         "launches_by_path": {n: p[k] for n, p in head_paths.items()},
+         "launches_per_superstep": {"pigan": head_per[k],
+                                    "anigan": anigan_head_per[k]},
+         "max_abs_err": max(e[0] for e in head_errs), "ms": ht["fine"][k],
+         "plain_ms": ht["fine"][k + "_plain"],
+         **kb.head_bound(**head_dims, backward=k == "bwd"),
+         "library_ms": None,
+         **{name: {"ms": ht[name][k], "plain_ms": ht[name][k + "_plain"]}
+            for name in ("coarse", "anigan")}}
+        for k in ("fwd", "bwd")]
+    kernels[-1]["max_rel_err"] = max(e[1] for e in head_errs)
+    kernels[-1]["split_ms"] = ht["fine"]["bwd_split"]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card_line())

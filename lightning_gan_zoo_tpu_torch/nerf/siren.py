@@ -11,7 +11,10 @@ flax's ``Dense`` init (LeCun truncated normal, zero bias).
 The compute policy is explicit (``bf16``), not left to autocast: under
 precision 16 a layer multiplies in bf16 (layer 0 in f32), applies FiLM in
 bf16, takes the sine argument in f32 and uses ``fast_sin``; under precision
-32 everything is f32 with the exact ``torch.sin``.
+32 everything is f32 with the exact ``torch.sin``. Under precision 16 the
+trunk and the rgb/α head run as fused ops where the trunk's rule holds
+(``SirenNet.fuses``): hand-written kernels on a card, their plain versions
+on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import siren_head as cuda_head
 from ..ops.cuda import siren_trunk as cuda_trunk
 from ..ops.fast_math import fast_sin
 from ..parallel import tensor
@@ -147,6 +151,32 @@ class SirenNet(nn.Module):
                 g_in.contiguous(), b_in.contiguous(), self.w0s)
 
 
+def rgb_head(field: nn.Module, trunk_in: torch.Tensor, x: torch.Tensor,
+             dirs: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+             to_alpha: Optional[nn.Linear]):
+    """The field's heads on the trunk's (B, M, H) features ``x``: [x ‖ view
+    direction] → ``to_rgb_siren`` (FiLM ``gamma``, ``beta``) → ``to_rgb``,
+    and ``to_alpha`` on x where one is given; ``dirs`` (B, N, 3) per ray,
+    ``trunk_in`` the trunk's input. Where the trunk fuses (the bf16 policy
+    at a fused width), one op (ops/cuda/siren_head.py: the kernels on a
+    card, the plain version on the CPU); otherwise layer by layer. Returns
+    (rgb (B, M, 3), α (B, M, 1) or None) after their sigmoids."""
+    b, m, _ = x.shape
+    siren, to_rgb = field.to_rgb_siren, field.to_rgb
+    if field.siren.fuses(trunk_in):
+        w = tensor.whole
+        alpha_w = (None, None) if to_alpha is None else (w(to_alpha.weight),
+                                                          w(to_alpha.bias))
+        return cuda_head.siren_head(x, dirs, w(siren.kernel), w(siren.bias),
+                                    gamma, beta, w(to_rgb.weight),
+                                    w(to_rgb.bias), *alpha_w, siren.w0)
+    n = dirs.shape[1]
+    rows = dirs[:, :, None, :].expand(b, n, m // n, 3).reshape(b, m, 3)
+    alpha = None if to_alpha is None else torch.sigmoid(to_alpha(x))
+    h = siren(torch.cat([x, rows.to(x.dtype)], dim=-1), gamma, beta)
+    return torch.sigmoid(to_rgb(h)), alpha
+
+
 class MappingNetwork(nn.Module):
     """z → per-head FiLM (γ, β) of shape (B, n_heads, dim_out); the input is
     L2-normalised, then 3 × (Linear + leaky ReLU 0.2)."""
@@ -173,7 +203,8 @@ class MappingNetwork(nn.Module):
 
 class SirenRadianceField(nn.Module):
     """π-GAN radiance field: FiLM-SIREN trunk → α head; [features ‖ view
-    direction] → FiLM sine layer → rgb head; sigmoids on both."""
+    direction] → FiLM sine layer → rgb head; sigmoids on both. Where the
+    trunk fuses, the heads run as one op (``rgb_head``)."""
 
     def __init__(self, latent_z_dim: int, num_layers: int, dim_hidden: int,
                  bf16: bool = False,
@@ -203,14 +234,10 @@ class SirenRadianceField(nn.Module):
             min=1e-12)
         b, n, p, _ = points.shape
         pts = points.reshape(b, n * p, 3)
-        dirs = dirs[:, :, None, :].expand(b, n, p, 3).reshape(b, n * p, 3)
         x = self.siren(pts, gammas, betas)
-        alpha = self.to_alpha(x)
-        x = torch.cat([x, dirs.to(x.dtype)], dim=-1)
-        x = self.to_rgb_siren(x, rgb_g[:, 0], rgb_b[:, 0])
-        rgb = self.to_rgb(x)
-        return (torch.sigmoid(alpha).reshape(b, n, p, 1),
-                torch.sigmoid(rgb).reshape(b, n, p, 3))
+        rgb, alpha = rgb_head(self, pts, x, dirs, rgb_g[:, 0], rgb_b[:, 0],
+                              self.to_alpha)
+        return alpha.reshape(b, n, p, 1), rgb.reshape(b, n, p, 3)
 
 
 class SirenSingleShape(nn.Module):
@@ -219,7 +246,8 @@ class SirenSingleShape(nn.Module):
     FiLM'd one whose features, with the view direction, go through the FiLM
     sine layer ``to_rgb_siren`` and the rgb head, and an unfilmed one
     (``alpha_siren``) before the α head. Under the bf16 policy on a card
-    each trunk runs the fused kernels, the unfilmed one with γ = 1, β = 0.
+    each trunk runs the fused kernels, the unfilmed one with γ = 1, β = 0,
+    and the rgb head runs as one op.
 
     Without deformation inputs the field reads uniform noise in place of the
     deformed points, drawn from ``deform_generator`` (the reference draws
@@ -276,11 +304,8 @@ class SirenSingleShape(nn.Module):
             deformed = draw_rows(lambda m: torch.rand(
                 (m, n * p, self.input_channels), generator=deform_generator,
                 device=points.device), b)
-        dirs = dirs[:, :, None, :].expand(b, n, p, 3).reshape(b, n * p, 3)
         x = self.siren(deformed, gammas, betas)
-        x = torch.cat([x, dirs.to(x.dtype)], dim=-1)
-        x = self.to_rgb_siren(x, rgb_g[:, 0], rgb_b[:, 0])
-        rgb = self.to_rgb(x)
-        alpha = self.to_alpha(self.alpha_siren(deformed))
-        return (torch.sigmoid(alpha).reshape(b, n, p, 1),
-                torch.sigmoid(rgb).reshape(b, n, p, 3))
+        rgb, _ = rgb_head(self, deformed, x, dirs, rgb_g[:, 0], rgb_b[:, 0],
+                          None)
+        alpha = torch.sigmoid(self.to_alpha(self.alpha_siren(deformed)))
+        return alpha.reshape(b, n, p, 1), rgb.reshape(b, n, p, 3)

@@ -5,7 +5,7 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (sm_90a), one
 linked into one shared library with a plain C interface,
 ``build/torch_kernels/libgan_kernels.so`` at the repository root, loaded
 with ``ctypes``. The library is built at first use and rebuilt when a source
-is newer than it. Nothing here runs at import time: a machine without
+or a header (``csrc/*.cuh``) is newer than it. Nothing here runs at import time: a machine without
 ``nvcc`` imports this module and only fails if it asks for the library.
 """
 from __future__ import annotations
@@ -53,13 +53,15 @@ def _run(cmd) -> str:
 
 
 def build_library() -> Tuple[Path, str]:
-    """Compile the kernels if the library is missing or older than a source.
+    """Compile the kernels if the library is missing or older than a source
+    or a header.
     Returns (library path, compiler output); the output is empty when the
     library was already up to date. Raises KernelBuildError with nvcc's
     stderr when the compiler fails."""
     srcs = sorted(SOURCES_DIR.glob("*.cu"))
+    inputs = [*srcs, *SOURCES_DIR.glob("*.cuh")]
     if LIB_PATH.exists() and all(
-            s.stat().st_mtime <= LIB_PATH.stat().st_mtime for s in srcs):
+            s.stat().st_mtime <= LIB_PATH.stat().st_mtime for s in inputs):
         return LIB_PATH, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
@@ -114,4 +116,14 @@ def load_library() -> ctypes.CDLL:
     #  rows_per_block, n_split, w0s, stream)
     lib.lgzt_siren_trunk_bwd.argtypes = [ptr] * 18 + [i32] * 8 + [floats, ptr]
     lib.lgzt_siren_trunk_bwd.restype = i32
+    f32 = ctypes.c_float
+    # (x, dirs, wpack, bias, gam, bet, wrgb, brgb, walpha, balpha, rgb,
+    #  alpha, B, M, N, H, rows_per_block, w0, stream)
+    lib.lgzt_siren_head_fwd.argtypes = [ptr] * 12 + [i32] * 5 + [f32, ptr]
+    lib.lgzt_siren_head_fwd.restype = i32
+    # (x, dirs, wpack, bias, gam, bet, wrgb, walpha, rgb, alpha, grgb,
+    #  galpha, dx, ddir, dastash, part, part2, dw, db, dg, dbt, dwr, dbr,
+    #  dwa, dba, B, M, N, H, rows_per_block, n_split, w0, stream)
+    lib.lgzt_siren_head_bwd.argtypes = [ptr] * 25 + [i32] * 6 + [f32, ptr]
+    lib.lgzt_siren_head_bwd.restype = i32
     return lib

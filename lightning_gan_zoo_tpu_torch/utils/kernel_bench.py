@@ -5,17 +5,19 @@ computes the same function, that call.
     python -m lightning_gan_zoo_tpu_torch.utils.kernel_bench
 
 Prints one JSON line per kernel (the trunk at π-GAN's shape and again at
-ANIGAN's 45 input channels) and one each with the trilinear and the trunk
-backward's time split by the kernels they launch (``torch.profiler``), each
-with the card's name and power limit. ``chip_smoke.py`` takes its
-timings and bounds from here.
+ANIGAN's 45 input channels; the rgb/α head at π-GAN's fine and coarse
+passes and without α, as ANIGAN runs it) and one each with the trilinear,
+the trunk and the head backward's time split by the kernels they launch
+(``torch.profiler``), each with the card's name and power limit.
+``chip_smoke.py`` takes its timings and bounds from here.
 
 The yardsticks are never called by the port: ``F.grid_sample`` (5-D,
 trilinear, border padding, ``align_corners=True``) computes the trilinear
 resample once the coordinates are normalised, and aten's
 ``grid_sampler_3d_backward`` with the grid's gradient masked off computes
 its volume gradient. Their NCDHW inputs and normalised grid are built
-outside the timed window. The SIREN trunk has no single PyTorch call.
+outside the timed window. The SIREN trunk and the rgb/α head have no
+single PyTorch call.
 """
 from __future__ import annotations
 
@@ -42,9 +44,17 @@ HOLOGAN_VIEWS = dict(elevation_low=70, elevation_high=110, azimuth_low=220,
 TRUNK_SLICE = dict(b=128, m=8192, h=256, layers=7, n_film=6)
 #: the same rows with ANIGAN's displacement deformer: 45 input channels
 TRUNK_CIN45 = dict(TRUNK_SLICE, cin=45)
+#: π-GAN's rgb/α head on the same rows: 256 rays × 32 points (the fine
+#: pass), and the coarse pass's 256 × 16
+HEAD_SLICE = dict(b=128, m=8192, rays=256, h=256, alpha=True)
+HEAD_COARSE = dict(HEAD_SLICE, m=4096)
+#: ANIGAN's: its α comes from a trunk of its own, so the head has none
+HEAD_ANIGAN = dict(HEAD_SLICE, alpha=False)
 #: the kernels the backwards launch, as the profiler names them
 TRUNK_BWD_KERNELS = ("trunk_bwd_chain", "trunk_bwd_dw", "trunk_bwd_sum_dw",
                      "trunk_bwd_sum_chunks", "trunk_bwd_sum_batch")
+HEAD_BWD_KERNELS = ("siren_head_bwd", "siren_head_bwd_dw",
+                    "siren_head_bwd_dw_sum", "siren_head_bwd_sum")
 TRILINEAR_BWD_KERNELS = ("trilinear_count", "trilinear_place",
                          "trilinear_bwd")
 
@@ -100,6 +110,20 @@ def trunk_bound(b: int, m: int, h: int, layers: int, cin: int = 3,
     return max(bound(rows * (layers - 1) * 2.0 * h * h * k, nbytes),
                bound(rows * 2.0 * cin * h * k, nbytes, PEAK_F32_FLOPS),
                key=lambda d: d["bound_ms"])
+
+
+def head_bound(b: int, m: int, h: int, alpha: bool = True,
+               backward: bool = False) -> dict:
+    """Work of the rgb/α head per row: the (H+3)×H bf16 product on the
+    tensor cores (the backward recomputes it and forms dx and dW: 3×).
+    Bytes: the bf16 features and the bf16 outputs (forward); the features,
+    the outputs and their cotangents, and dx (backward). The linears'
+    dot products and the weights are small beside them."""
+    rows, k = b * m, 3 if backward else 1
+    outs = 2 * (3 + (1 if alpha else 0))
+    nbytes = rows * (h * 2 + outs) if not backward else \
+        rows * (2 * h * 2 + 2 * outs)
+    return bound(rows * 2.0 * (h + 3) * h * k, nbytes)
 
 
 def trilinear_inputs(gen):
@@ -215,6 +239,75 @@ def trunk_times(args, dy, w0s) -> Dict[str, float]:
             "fwd_bwd_plain": plain_ms(plain_fwd_bwd)}
 
 
+def head_inputs(gen, b, m, rays, h, alpha=True):
+    """The head's inputs on the card: trunk-like features (bf16 sines,
+    U(−1, 1)), unit directions per ray, SIREN-init W and b, γ ~ 1 + N(0,
+    0.01), β ~ N(0, 0.01), the linears with flax's Dense scale, and bf16
+    cotangents of rgb and α. Returns (args of ``siren_head``, (g_rgb,
+    g_alpha)); without ``alpha`` w_alpha, b_alpha and g_alpha are None."""
+    d = dict(device="cuda")
+    x = (torch.rand(b, m, h, generator=gen, **d) * 2 - 1).to(torch.bfloat16)
+    dirs = F.normalize(torch.randn(b, rays, 3, generator=gen, **d), dim=-1)
+    bound_ = (6 / (h + 3)) ** 0.5
+    w = (torch.rand(h + 3, h, generator=gen, **d) * 2 - 1) * bound_
+    bias = (torch.rand(h, generator=gen, **d) * 2 - 1) * bound_
+    g = torch.randn(b, h, generator=gen, **d) * 0.1 + 1
+    bt = torch.randn(b, h, generator=gen, **d) * 0.1
+    w_rgb = torch.randn(3, h, generator=gen, **d) / h ** 0.5
+    b_rgb = torch.randn(3, generator=gen, **d) * 0.1
+    w_a = torch.randn(1, h, generator=gen, **d) / h ** 0.5 if alpha else None
+    b_a = torch.randn(1, generator=gen, **d) * 0.1 if alpha else None
+    g_rgb = torch.randn(b, m, 3, generator=gen, **d).to(torch.bfloat16)
+    g_a = torch.randn(b, m, 1, generator=gen, **d).to(torch.bfloat16) \
+        if alpha else None
+    return (x, dirs, w, bias, g, bt, w_rgb, b_rgb, w_a, b_a), (g_rgb, g_a)
+
+
+def head_backward_args(args, outs, cot):
+    """The backward's arguments (``launch_backward``'s and
+    ``head_backward``'s) from the head's inputs, the forward's outputs and
+    their cotangents."""
+    x, dirs, w, bias, g, bt, w_rgb, _, w_a, _ = args
+    return (x, dirs, w, bias, g, bt, w_rgb, w_a, *outs, *cot)
+
+
+def head_times(args, cot) -> Dict[str, float]:
+    """Kernel and plain ms of the head's forward, backward and forward +
+    backward through the autograd function, as ``trunk_times`` times the
+    trunk (the plain version over 5 calls after one warm-up)."""
+    from ..ops import siren_head as ph
+    from ..ops.cuda import siren_head as sh
+    wpack = sh.pack_weight(args[2])
+    bargs = head_backward_args(args, sh.launch_forward(*args, wpack=wpack),
+                               cot)
+    leaves = [None if a is None else
+              a.detach().clone().requires_grad_(i != 1)
+              for i, a in enumerate(args)]
+    has_alpha = args[8] is not None
+
+    def kernel_fwd_bwd():
+        rgb, alpha = sh.siren_head(*leaves)
+        outs, grads = ([rgb, alpha], cot) if has_alpha else ([rgb], cot[:1])
+        torch.autograd.grad(outs, [t for t in leaves
+                                   if t is not None and t.requires_grad],
+                            grads)
+
+    def plain_fwd_bwd():
+        ph.head_forward(*args)
+        ph.head_backward(*bargs)
+
+    def plain_ms(fn):
+        return median_ms(fn, warmup=1, reps=5)
+
+    return {"fwd": median_ms(lambda: sh.launch_forward(*args, wpack=wpack)),
+            "fwd_plain": plain_ms(lambda: ph.head_forward(*args)),
+            "bwd": median_ms(lambda: sh.launch_backward(
+                *bargs, need_ddirs=False, wpack=wpack)),
+            "bwd_plain": plain_ms(lambda: ph.head_backward(*bargs)),
+            "fwd_bwd": median_ms(kernel_fwd_bwd),
+            "fwd_bwd_plain": plain_ms(plain_fwd_bwd)}
+
+
 def kernel_split(fn, kernels, reps=5) -> Optional[Dict[str, float]]:
     """Device ms per call of ``fn`` of each of its ``kernels``, summed from
     ``torch.profiler`` over ``reps`` calls after a warm-up; None when the
@@ -244,6 +337,14 @@ def trunk_backward_split(args, dy, w0s) -> Optional[Dict[str, float]]:
     from ..ops.cuda import siren_trunk as st
     return kernel_split(lambda: st.launch_backward(*args, dy, w0s),
                         TRUNK_BWD_KERNELS)
+
+
+def head_backward_split(args, cot) -> Optional[Dict[str, float]]:
+    """The head backward's device ms per call, by kernel."""
+    from ..ops.cuda import siren_head as sh
+    bargs = head_backward_args(args, sh.launch_forward(*args), cot)
+    return kernel_split(lambda: sh.launch_backward(*bargs, need_ddirs=False),
+                        HEAD_BWD_KERNELS)
 
 
 def trilinear_backward_split(vox, coords, gen
@@ -295,6 +396,22 @@ def main() -> int:
                           trunk_backward_split(args, dy, w0s),
                           "shape": trunk, "card": card}), flush=True)
         del args, dy
+    for head in (HEAD_SLICE, HEAD_COARSE, HEAD_ANIGAN):
+        args, cot = head_inputs(gen, **head)
+        ht = head_times(args, cot)
+        shape = {k: head[k] for k in ("b", "m", "h", "alpha")}
+        for k in ("fwd", "bwd"):
+            print(json.dumps({"kernel": f"siren_head_{k}", "shape": head,
+                              "ms": ht[k], "plain_ms": ht[f"{k}_plain"],
+                              "fwd_bwd_ms": ht["fwd_bwd"],
+                              "fwd_bwd_plain_ms": ht["fwd_bwd_plain"],
+                              "library_ms": None,
+                              **head_bound(**shape, backward=k == "bwd"),
+                              "card": card}), flush=True)
+        print(json.dumps({"siren_head_bwd_split_ms":
+                          head_backward_split(args, cot),
+                          "shape": head, "card": card}), flush=True)
+        del args, cot
     return 0
 
 

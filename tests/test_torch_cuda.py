@@ -161,6 +161,34 @@ def test_trunk_kernels_match_plain(gen, b, m, h, layers, n_film, unfilmed):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
+@pytest.mark.parametrize("b,m,rays,h,alpha", [
+    # whole tiles; a partial last tile; a sample shorter than one tile;
+    # blocks of several tiles whose last is partial, without α; width 128
+    (2, 4096, 128, 256, True), (3, 999, 111, 256, True),
+    (2, 40, 8, 256, True), (128, 999, 333, 256, False),
+    (3, 65, 13, 128, False)])
+def test_head_kernels_match_plain(gen, b, m, rays, h, alpha):
+    """The rgb/α head: forward within 2⁻⁷ absolute (a linear's output can
+    round to the neighbouring bf16 value), every gradient group within 0.01
+    of its max |ref|, and both directions bit-identical from run to run."""
+    from lightning_gan_zoo_tpu_torch.ops import siren_head as ph
+    from lightning_gan_zoo_tpu_torch.ops.cuda import siren_head as sh
+    from lightning_gan_zoo_tpu_torch.utils import kernel_bench as kb
+    args, cot = kb.head_inputs(gen, b, m, rays, h, alpha)
+    outs = sh.launch_forward(*args)
+    for g_, w in zip(outs, [t for t in ph.head_forward(*args)
+                            if t is not None]):
+        assert float((g_.float() - w.float()).abs().max()) <= 2.0 ** -7
+    assert all(map(torch.equal, outs, sh.launch_forward(*args)))
+    bargs = kb.head_backward_args(args, outs, cot)
+    got = sh.launch_backward(*bargs)
+    for g_, w in zip(got, ph.head_backward(*bargs)):
+        if w is not None:
+            assert float((g_.float() - w.float()).abs().max()) <= \
+                0.01 * float(w.float().abs().max())
+    assert all(map(torch.equal, got, sh.launch_backward(*bargs)))
+
+
 @pytest.mark.parametrize("cin,b,m,h,layers,n_film,unfilmed", [
     (1, 2, 300, 256, 7, 6, False), (3, 2, 129, 128, 4, 3, False),
     (5, 1, 257, 256, 7, 6, False), (45, 2, 1000, 256, 7, 6, False),

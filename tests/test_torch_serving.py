@@ -100,6 +100,10 @@ def test_pose_program_equals_eager_generate(family, tmp_path):
     assert torch.equal(got, task.generate(z, view_in=views))
     other = program.module()(z, views.flip(0), torch.tensor(0))
     assert (got - other).abs().max() > 1e-4
+    if family == "pigan":   # one head node per field evaluation, as the trunk
+        nodes = export.kernel_nodes(program)
+        assert nodes["lgzt.siren_head_fwd.default"] == nodes[
+            "lgzt.siren_trunk_fwd.default"] > 0
 
 
 def test_pose_rejects_2d_family(tmp_path):
