@@ -9,6 +9,10 @@ How the program is driven, without editing it:
     run: the wrapper counts the images of every superstep, reads the
     correctness check's numbers over the run's first CHECK_STEPS
     supersteps, and starts and stops the profiler;
+  * ``runtime.steps.optimizer_step`` (the name the superstep calls) is
+    wrapped too: in the check's first superstep it reads each net's
+    gradient as the optimizer takes it, at that net's first update, and
+    otherwise passes straight through;
   * the Trainer's ``_update_epoch_schedules`` (the first call of every
     epoch) opens the window at the start of the first epoch after the warm
     ones, and its logger's ``log_scalars`` (called once per epoch, after
@@ -38,29 +42,6 @@ CHECK_STEPS = 3
 
 class _Stop(Exception):
     """Ends ``fit``: the window closed, or the check is read."""
-
-
-def _moments(opt) -> Dict[torch.nn.Parameter, torch.Tensor]:
-    """Each parameter's Adam first moment (``exp_avg``), a zero tensor
-    where the optimizer has no state for it yet."""
-    out = {}
-    for group in opt.param_groups:
-        for p in group["params"]:
-            st = opt.state.get(p, {})
-            out[p] = (st["exp_avg"].detach().clone() if "exp_avg" in st
-                      else torch.zeros_like(p))
-    return out
-
-
-def _grad_norms(net, opt, before) -> Dict[str, float]:
-    """The norm of each parameter's gradient as Adam took it in its last
-    step, worked out from its first moment before and after:
-    g = (m₁ − β₁m₀)/(1 − β₁), exact at β₁ = 0."""
-    b1 = float(opt.param_groups[0]["betas"][0])
-    after = _moments(opt)
-    return {name: float(((after[p].double() - b1 * before[p].double())
-                         / (1.0 - b1)).norm())
-            for name, p in net.named_parameters()}
 
 
 def _params(task) -> Dict[str, torch.Tensor]:
@@ -96,6 +77,9 @@ class Probe:
         self.prof = None
         self.stretch_s = self.stretch_wall_s = None
         self.stretch_steps = 0
+        #: {id(optimizer): (net's prefix, net)} whose next update reads the
+        #: gradient: filled for the check's first superstep only
+        self._first_update: Dict[int, tuple] = {}
 
     # -- the epoch boundaries ------------------------------------------------
     def epoch_start(self):
@@ -129,14 +113,17 @@ class Probe:
             reading = self.reading
             if self.k == 0:
                 reading["params0"] = _params(task)
-                reading["moments0"] = (_moments(state.d_opt),
-                                       _moments(state.g_opt))
+                reading["grad"] = {}
+                self._first_update = {
+                    id(state.d_opt): ("discriminator", task.discriminator),
+                    id(state.g_opt): ("generator", task.generator)}
         in_window = self.t_open is not None and self.t_close is None
         if in_window and self.trace_at is not None and self.prof is None \
                 and self.window_steps == self.trace_at:
             self._start_profiler()
         metrics = self.superstep(task, state, batches, disc_freq, gen_freq,
                                  accum, ema_decay)
+        self._first_update = {}
         if in_window:
             self.window_steps += 1
             self._epoch_steps += 1
@@ -149,12 +136,6 @@ class Probe:
         if reading is not None:
             reading["losses"].append({k: float(v) for k, v in metrics.items()})
             if self.k == 0:
-                m_d, m_g = reading.pop("moments0")
-                reading["grad"] = {
-                    **{f"discriminator.{n}": v for n, v in _grad_norms(
-                        task.discriminator, state.d_opt, m_d).items()},
-                    **{f"generator.{n}": v for n, v in _grad_norms(
-                        task.generator, state.g_opt, m_g).items()}}
                 reading["change1"] = _change(_params(task),
                                              reading["params0"])
             if self.k == CHECK_STEPS - 1:
@@ -164,6 +145,22 @@ class Probe:
         if not self.window and "change" in self.reading:
             raise _Stop
         return metrics
+
+    def wrap_optimizer_step(self, step: Callable) -> Callable:
+        """``step`` (the program's ``optimizer_step``, or a plant's in its
+        place) reading, at each net's first update of the check's first
+        superstep, the norm of every leaf's gradient as the optimizer is
+        handed it: exact for any optimizer and any number of updates."""
+        def optimizer_step(opt, schedule, count):
+            first = self._first_update.pop(id(opt), None)
+            if first is not None:
+                prefix, net = first
+                self.reading["grad"].update(plain.leaf_norms(
+                    (f"{prefix}.{n}",
+                     p.grad if p.grad is not None else torch.zeros_like(p))
+                    for n, p in net.named_parameters()))
+            return step(opt, schedule, count)
+        return optimizer_step
 
     def _start_profiler(self):
         torch.cuda.synchronize()
@@ -202,10 +199,11 @@ def drive(c: dict, seed: int, seconds: float, trace: bool, device: str,
     ``fit`` until the window closes (or, without ``window``, until the
     check is read). ``plant(trainer)``, where given, is a context
     manager entered around ``fit`` (a deliberately broken program, for
-    the tests of the comparison). Returns the probe's reading; the
-    program's state is freed."""
+    the tests of the comparison); the probe's wrap of ``optimizer_step``
+    goes over whatever step the plant leaves in place. Returns the probe's
+    reading; the program's state is freed."""
     from lightning_gan_zoo_tpu_torch.config import compose
-    from lightning_gan_zoo_tpu_torch.runtime import loop
+    from lightning_gan_zoo_tpu_torch.runtime import loop, steps
 
     cfg = compose(spec.ROOT / "conf", spec.overrides(c, seed))
     spec.check_values(cfg, c["values"])
@@ -232,6 +230,9 @@ def drive(c: dict, seed: int, seconds: float, trace: bool, device: str,
                                      on_epoch))
         if plant is not None:
             stack.enter_context(plant(trainer))
+        stack.enter_context(patched(
+            steps, "optimizer_step",
+            probe.wrap_optimizer_step(steps.optimizer_step)))
         try:
             trainer.fit()
         except _Stop:

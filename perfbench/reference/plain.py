@@ -198,9 +198,11 @@ def grads_of(params: List[torch.Tensor]) -> List[torch.Tensor]:
 
 class GANReference:
     """The superstep every configuration shares: ``disc_freq`` D updates,
-    then ``gen_freq`` G updates, each over ``accum`` micro-batches whose
-    losses are averaged into one gradient; z drawn per micro-batch; the
-    extra state (a fade-in) advanced after every micro-batch. A
+    then ``gen_freq`` G updates (``optimisation.disc_freq`` and
+    ``optimisation.gen_freq`` where the values give them, else 1), each
+    over ``accum`` micro-batches whose losses are averaged into one
+    gradient; z drawn per micro-batch; the extra state (a fade-in)
+    advanced after every micro-batch. A
     configuration supplies ``D`` and ``G`` (modules whose parameter names
     are the program's), ``disc_loss``, ``gen_loss``, ``sample_z``, the
     optimizers (``opt_d``, ``opt_g``) and their learning rates by update
@@ -211,6 +213,10 @@ class GANReference:
 
     def __init__(self, values: dict, device, quant: bool = False):
         self.values = values
+        self.disc_freq = int(values.get("optimisation.disc_freq",
+                                        self.disc_freq))
+        self.gen_freq = int(values.get("optimisation.gen_freq",
+                                       self.gen_freq))
         self.device = torch.device(device)
         self.num = Numerics(quant)
         self.d_steps = self.g_steps = 0
@@ -223,7 +229,8 @@ class GANReference:
                   ) -> Tuple[Dict[str, float], Dict[str, Dict[str, float]]]:
         """One superstep on ``images`` (n_micro, B, C, S, S). Returns the
         losses averaged over the micro-batches that emitted them, and the
-        per-leaf norms of each net's gradient as its optimizer took it."""
+        per-leaf norms of each net's gradient as its optimizer took it at
+        that net's first update of the superstep."""
         sums: Dict[str, List[torch.Tensor]] = {}
         grads: Dict[str, Dict[str, float]] = {}
         i = 0
@@ -246,8 +253,10 @@ class GANReference:
                     for k, v in metrics.items():
                         sums.setdefault(k, []).append(v.detach())
                 g = grads_of(params)
-                grads["discriminator" if is_disc else "generator"] = \
-                    leaf_norms(zip([n for n, _ in net.named_parameters()], g))
+                name = "discriminator" if is_disc else "generator"
+                if name not in grads:
+                    grads[name] = leaf_norms(
+                        zip([n for n, _ in net.named_parameters()], g))
                 if is_disc:
                     self.opt_d.step(g, self.lr_d(self.d_steps))
                     self.d_steps += 1

@@ -9,9 +9,10 @@ from perfbench.reference import plain
 from perfbench.tests.tiny import tiny_cell
 
 SEED = 3_000_000_029
+CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 
 
-@pytest.mark.parametrize("name", ["pigan.train16"])
+@pytest.mark.parametrize("name", CELLS)
 def test_reference_init_and_draws_are_the_programs(name):
     """Worked out again from the seed, the reference's weights are the
     program's bit for bit, and so are its z draws."""
@@ -52,7 +53,7 @@ def test_images_and_order_are_the_loaders(tmp_path):
     assert not root.exists()
 
 
-@pytest.mark.parametrize("name", ["pigan.train16"])
+@pytest.mark.parametrize("name", CELLS)
 def test_program_at_float32_is_the_reference(name):
     """At float32 the program's first supersteps agree with the
     reference to round-off in every compared number."""

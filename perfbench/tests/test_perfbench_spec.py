@@ -117,3 +117,10 @@ def test_a_cell_on_more_than_one_card_is_refused():
     entry = dict(bench["workloads"][0], chips=4)
     with pytest.raises(spec.SpecError):
         spec.cell(entry["name"], {**bench, "workloads": [entry]})
+
+
+def test_a_cell_without_tiny_widths_names_the_missing_file():
+    from perfbench.tests.tiny import tiny_values
+    with pytest.raises(spec.SpecError, match=r"tiny_cells/no\.such\.cell"
+                                             r"\.json is missing"):
+        tiny_values("no.such.cell")

@@ -1,26 +1,33 @@
-"""The benchmark's cells at widths a CPU test can hold."""
+"""The benchmark's cells at widths a CPU test can hold: each cell's tiny
+numbers in ``tiny_cells/<cell>.json``, found by the cell's name."""
 from __future__ import annotations
 
 import copy
+import json
+from pathlib import Path
+from typing import Optional
 
 from perfbench import spec
 
-TINY = {
-    "pigan.train16": {
-        "model.noise_dim": 16, "nerf.siren_dim_hidden": 32,
-        "nerf.siren_num_layers": 2, "nerf.n_pts_per_ray": 4,
-        "nerf.n_pts_per_ray_fine": 4, "train.features_disc": 8,
-        "train.img_size": 32, "variable_batch_size.batch_sizes": [4, 2, 2],
-        "dataset.n": 48},
-}
+TINY_DIR = Path(__file__).resolve().parent / "tiny_cells"
 
 
-def tiny_cell(name: str, precision: int = 32) -> dict:
-    """Cell ``name`` with the TINY widths; at ``precision`` 32 every
-    product of the program is float32, so the program and the reference
-    compute the same function."""
+def tiny_values(name: str) -> dict:
+    """The numbers that cut cell ``name`` to a CPU test's size."""
+    path = TINY_DIR / f"{name}.json"
+    if not path.is_file():
+        raise spec.SpecError(f"cell {name!r} has no tiny widths: "
+                             f"{path} is missing")
+    return json.loads(path.read_text())
+
+
+def tiny_cell(name: str, precision: int = 32,
+              values: Optional[dict] = None) -> dict:
+    """Cell ``name`` with its tiny widths, and ``values`` over them; at
+    ``precision`` 32 every product of the program is float32, so the
+    program and the reference compute the same function."""
     c = copy.deepcopy(spec.cell(name))
-    extra = dict(TINY[name], precision=precision)
+    extra = dict(tiny_values(name), precision=precision, **(values or {}))
     c["workload"]["values"] = {**c["workload"]["values"], **extra}
     c["values"] = {**c["config_file"]["values"], **c["workload"]["values"]}
     return c
