@@ -9,6 +9,7 @@ import contextlib
 import torch
 
 from .harness import patched
+from .reference.plain import map_batch
 
 
 @contextlib.contextmanager
@@ -39,14 +40,15 @@ def g_lr_zero(trainer):
 
 @contextlib.contextmanager
 def half_batch(trainer):
-    """Both losses see only the first half of every micro-batch (and of
-    its z): the mean is taken over the rest."""
+    """Both losses see only the first half of every micro-batch (every
+    leaf of it, nested ones included, and its z): the mean is taken over
+    the rest."""
     task = trainer.task
 
     def halve(fn):
         def loss(batch, z, extra):
             h = max(1, z.shape[0] // 2)
-            return fn({k: v[:h] for k, v in batch.items()}, z[:h], extra)
+            return fn(map_batch(lambda v: v[:h], batch), z[:h], extra)
         return loss
 
     with patched(task, "disc_loss", halve(task.disc_loss)), \

@@ -3,6 +3,9 @@
 the comparison of the first supersteps with the plain reference.
 
 How the program is driven, without editing it:
+  * where the configuration's reference module defines ``prepare_data``,
+    the files its dataset reads are written once (``prepare``) and the
+    config keys that point at them join the cell's values;
   * the Trainer is built from the ``conf/`` tree by the port's
     ``config.compose`` with the cell's overrides, and ``fit`` runs;
   * ``runtime.loop.superstep`` (the name ``fit`` calls) is wrapped for the
@@ -24,10 +27,16 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
+import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import torch
@@ -38,6 +47,10 @@ from .trace import Context, from_profiler
 
 #: supersteps of the correctness check: the run's first, in epoch 0
 CHECK_STEPS = 3
+#: where ``prepare`` writes a configuration's data, one directory a digest
+DATA_ROOT = spec.ROOT / "build" / "perfbench" / "data"
+#: the file, written last, whose presence makes a data directory whole
+DATA_MARKER = "prepared.json"
 
 
 class _Stop(Exception):
@@ -183,6 +196,68 @@ class Probe:
         self.stretch_wall_s = time.perf_counter() - self._t_stretch0
 
 
+def _data_digest(mod, values: dict) -> str:
+    """Of the values that shape the data (those the module names in
+    ``DATA_KEYS``, which a module with ``prepare_data`` must define) and
+    of the module's own source."""
+    shaping = {k: values.get(k) for k in mod.DATA_KEYS}
+    h = hashlib.sha256(json.dumps(shaping, sort_keys=True).encode())
+    h.update(Path(mod.__file__).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _moved(v, old: Path, new: Path):
+    """``v`` with ``old`` at its head replaced by ``new``, where ``v`` is
+    a path under ``old``; any other value as it is."""
+    if isinstance(v, (str, Path)):
+        try:
+            return str(new / Path(v).relative_to(old))
+        except ValueError:
+            pass
+    return str(v) if isinstance(v, Path) else v
+
+
+def prepare(c: dict) -> dict:
+    """Cell ``c`` with its data prepared: where the configuration's
+    reference module defines ``prepare_data(values, root) -> {key: value}``
+    (and ``DATA_KEYS``, the values that shape the files), the files its
+    dataset reads are written under ``DATA_ROOT/<config>/<digest>`` and
+    the keys it returns (paths under ``root`` moved with it) join the
+    cell's workload values and ``values``, so that the overrides point
+    the program at them, ``spec.check_values`` holds the composed config
+    to them and the reference reads the same files. A directory is
+    trusted only where its marker exists: the files are written to a
+    temporary directory beside it, the marker last, and it is renamed into
+    place; one without the marker is made again. ``c`` as it is where the
+    module defines no ``prepare_data``."""
+    mod = spec.reference(c["config"]["name"])
+    make = getattr(mod, "prepare_data", None)
+    if make is None:
+        return c
+    root = DATA_ROOT / c["config"]["name"] / _data_digest(mod, c["values"])
+    marker = root / DATA_MARKER
+    if not marker.is_file():
+        if root.exists():
+            shutil.rmtree(root)
+        root.parent.mkdir(parents=True, exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix=f".{root.name}.",
+                                    dir=root.parent))
+        try:
+            keys = make(dict(c["values"]), tmp)
+            (tmp / DATA_MARKER).write_text(json.dumps(
+                {k: _moved(v, tmp, root) for k, v in keys.items()}))
+            try:
+                os.rename(tmp, root)
+            except OSError:
+                if not marker.is_file():    # not another run's, whole
+                    raise
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    data = json.loads(marker.read_text())
+    work = dict(c["workload"], values={**c["workload"]["values"], **data})
+    return dict(c, workload=work, values={**c["values"], **data})
+
+
 @contextlib.contextmanager
 def patched(obj, name, value):
     old = getattr(obj, name)
@@ -195,16 +270,18 @@ def patched(obj, name, value):
 
 def drive(c: dict, seed: int, seconds: float, trace: bool, device: str,
           window: bool = True, plant: Optional[Callable] = None) -> dict:
-    """Build the program's Trainer for cell ``c`` at ``seed`` and run its
-    ``fit`` until the window closes (or, without ``window``, until the
-    check is read). ``plant(trainer)``, where given, is a context
-    manager entered around ``fit`` (a deliberately broken program, for
-    the tests of the comparison); the probe's wrap of ``optimizer_step``
-    goes over whatever step the plant leaves in place. Returns the probe's
-    reading; the program's state is freed."""
+    """Build the program's Trainer for cell ``c`` at ``seed``, its data
+    prepared first, and run its ``fit`` until the window closes (or,
+    without ``window``, until the check is read). ``plant(trainer)``,
+    where given, is a context manager entered around ``fit`` (a
+    deliberately broken program, for the tests of the comparison); the
+    probe's wrap of ``optimizer_step`` goes over whatever step the plant
+    leaves in place. Returns the probe's reading; the program's state is
+    freed."""
     from lightning_gan_zoo_tpu_torch.config import compose
     from lightning_gan_zoo_tpu_torch.runtime import loop, steps
 
+    c = prepare(c)
     cfg = compose(spec.ROOT / "conf", spec.overrides(c, seed))
     spec.check_values(cfg, c["values"])
     work = c["workload"]
@@ -265,13 +342,25 @@ def drive(c: dict, seed: int, seconds: float, trace: bool, device: str,
 
 
 # -------------------------------------------------------------- the check
+def superstep_batch(c: dict, seed: int, epoch: int, k: int, batch: int,
+                    n_micro: int, device) -> dict:
+    """Superstep ``k`` of epoch ``epoch``'s batch, made by the reference
+    alone: the configuration module's ``superstep_batch`` where it defines
+    one, else ``plain.superstep_batch`` (the synthetic images)."""
+    mod = spec.reference(c["config"]["name"])
+    make = getattr(mod, "superstep_batch", plain.superstep_batch)
+    return make(c["values"], seed, epoch, k, batch, n_micro, device)
+
+
 def reference_readings(c: dict, seed: int, device,
                        quant: bool = False) -> dict:
     """The plain reference over the run's first CHECK_STEPS supersteps:
-    its weights and its random streams drawn from the seed, the images
-    those the loader's order gives."""
+    its weights and its random streams drawn from the seed, each
+    superstep's batch the reference's own (``superstep_batch``) in the
+    loader's order."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    c = prepare(c)
     mod = spec.reference(c["config"]["name"])
     values = c["values"]
     ref = mod.Reference(values, device, quant=quant)
@@ -281,9 +370,8 @@ def reference_readings(c: dict, seed: int, device,
     p0 = {n: p.detach().clone() for n, p in ref.named_leaves().items()}
     out = {"losses": []}
     for k in range(CHECK_STEPS):
-        images = plain.superstep_images(values, seed, 0, k, batch, n_micro,
-                                        device)
-        ls, gr = ref.superstep(images, accum)
+        ls, gr = ref.superstep(
+            superstep_batch(c, seed, 0, k, batch, n_micro, device), accum)
         out["losses"].append(ls)
         if k == 0:
             out["grad"] = {f"{net}.{n}": v for net, norms in gr.items()
@@ -378,8 +466,9 @@ def is_correct(reading: dict, numbers: Dict[str, dict]) -> bool:
 def flops_per_superstep(c: dict, seed: int, epoch: int, device) -> float:
     """The plain reference's matmul and convolution operations in one
     superstep at epoch ``epoch``'s batch, accumulation and resolution:
-    counted at a batch of one and scaled by the batch, as every counted
-    product is linear in it."""
+    counted on the epoch's first superstep at a batch of one and scaled by
+    the batch, as every counted product is linear in it."""
+    c = prepare(c)
     mod = spec.reference(c["config"]["name"])
     values = c["values"]
     batch, accum, res = plain.schedule_at(values, epoch)
@@ -388,14 +477,8 @@ def flops_per_superstep(c: dict, seed: int, epoch: int, device) -> float:
     if hasattr(ref, "resolution"):
         ref.resolution = res
     n_micro = (ref.disc_freq + ref.gen_freq) * accum
-    img = plain.synthetic_images(list(range(n_micro)),
-                                 int(values["train.img_size"]),
-                                 int(values["dataset.n_channels"]),
-                                 float(values["train.data_mean"]),
-                                 float(values["train.data_std"]))
-    images = torch.from_numpy(img).to(device).permute(0, 3, 1, 2)
-    images = images.reshape(n_micro, 1, *images.shape[1:]).contiguous()
-    return plain.flops_of_superstep(ref, images, accum) * batch
+    one = superstep_batch(c, seed, epoch, 0, 1, n_micro, device)
+    return plain.flops_of_superstep(ref, one, accum) * batch
 
 
 def card_line() -> str:

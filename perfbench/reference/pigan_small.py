@@ -425,7 +425,8 @@ class Reference(plain.GANReference):
     def _d(self, x):
         return self.D(x, self.extra["alpha"], self.resolution)
 
-    def disc_loss(self, images, z):
+    def disc_loss(self, batch, z):
+        images = batch["image"]
         rays_xy = pixel_grid(images.shape[0], self.resolution, images.device)
         real = bilinear(images.permute(0, 2, 3, 1).float(),
                         -rays_xy).permute(0, 3, 1, 2)
@@ -439,6 +440,6 @@ class Reference(plain.GANReference):
         loss = r1 + div
         return loss, {"d_loss": loss, "r1": r1}
 
-    def gen_loss(self, images, z):
+    def gen_loss(self, batch, z):
         loss = torch.mean(self._d(self._fake(z)))
         return loss, {"g_loss": loss}

@@ -6,15 +6,21 @@ mathematics it stands for, in float32; ``Numerics`` can put every product
 cotangents backward), the lower-precision control that the comparison has
 to reject.
 
-  * ``synthetic_images`` and ``epoch_order``: the cell's input images, made
-    from their indices as the synthetic dataset defines them, and the order
-    in which one epoch visits them (the loader's shuffle of each epoch);
+  * ``epoch_order`` and ``superstep_indices``: the order in which one epoch
+    visits the dataset (the loader's shuffle of each epoch), and the indices
+    of one superstep's micro-batches;
+  * ``superstep_batch``, the default batch of a superstep: the synthetic
+    dataset's images (``synthetic_images``) at those indices, as the
+    Trainer stacks them; a configuration whose batch carries more defines
+    its own in its module, from ``folder_samples``, ``read_images``,
+    ``read_arrays`` and ``stack_micro`` where its data are files;
   * ``Adam``: the optimizer's update rule, one tensor at a time;
   * ``leaf_norms``: per-parameter norms, the currency of the comparison.
 """
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
@@ -110,23 +116,100 @@ def epoch_order(n: int, seed: int, epoch: int) -> np.ndarray:
     return order
 
 
-def superstep_images(values: dict, seed: int, epoch: int, k: int,
-                     batch: int, n_micro: int, device) -> torch.Tensor:
-    """The images of superstep ``k`` of epoch ``epoch``: micro-batches of
-    ``batch`` consecutive indices of the epoch's order, (n_micro, B, C, S, S)
-    float32 on ``device``."""
-    order = epoch_order(int(values["dataset.n"]), seed, epoch)
+def superstep_indices(n: int, seed: int, epoch: int, k: int, batch: int,
+                      n_micro: int) -> np.ndarray:
+    """The dataset indices of superstep ``k`` of epoch ``epoch``: micro-batch
+    after micro-batch of ``batch`` consecutive entries of the epoch's
+    order."""
     span = batch * n_micro
-    idx = order[k * span:(k + 1) * span]
+    idx = epoch_order(n, seed, epoch)[k * span:(k + 1) * span]
     if len(idx) < span:
         raise ValueError(f"epoch {epoch} has no superstep {k}")
+    return idx
+
+
+def superstep_batch(values: dict, seed: int, epoch: int, k: int, batch: int,
+                    n_micro: int, device) -> Dict[str, object]:
+    """The batch of superstep ``k`` of epoch ``epoch`` as the Trainer hands
+    it to the superstep: a dict whose leaves (nested dicts allowed) have
+    the leading shape (n_micro, B), the images NCHW at ``"image"``. This
+    is the default, the synthetic dataset's images alone, float32; a
+    configuration's module that defines ``superstep_batch`` with this
+    signature is used in its place."""
+    idx = superstep_indices(int(values["dataset.n"]), seed, epoch, k, batch,
+                            n_micro)
     img = synthetic_images(idx, int(values["train.img_size"]),
                            int(values["dataset.n_channels"]),
                            float(values["train.data_mean"]),
                            float(values["train.data_std"]))
-    s = img.shape[1]
-    out = torch.from_numpy(img).to(device).permute(0, 3, 1, 2)
-    return out.reshape(n_micro, batch, img.shape[-1], s, s).contiguous()
+    return stack_micro({"image": img}, n_micro, batch, device)
+
+
+def map_batch(fn, batch: dict) -> dict:
+    """``fn`` on every leaf of a batch, nested dicts included."""
+    return {k: map_batch(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in batch.items()}
+
+
+def stack_micro(flat: dict, n_micro: int, batch: int, device) -> dict:
+    """A dataset's rows in superstep order, (n_micro·B, ...) numpy arrays
+    (nested dicts allowed), as (n_micro, B, ...) tensors on ``device``;
+    the images NHWC at ``"image"`` become NCHW."""
+    def stack(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device).reshape(
+            (n_micro, batch) + a.shape[1:])
+    out = map_batch(stack, flat)
+    if "image" in out:
+        out["image"] = out["image"].permute(0, 1, 4, 2, 3).contiguous()
+    return out
+
+
+IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm", ".tif",
+                  ".tiff")
+
+
+def folder_samples(root) -> List[Path]:
+    """The image files of a class-per-subdirectory folder, in the order an
+    image folder (torchvision's semantics) indexes them: the class
+    directories sorted by name, each one's files found recursively and
+    sorted by path."""
+    root = Path(root)
+    out: List[Path] = []
+    for cdir in sorted(p for p in root.iterdir() if p.is_dir()):
+        out += [f for f in sorted(cdir.rglob("*"))
+                if f.suffix.lower() in IMAGE_SUFFIXES]
+    if not out:
+        raise FileNotFoundError(f"no images under {root}")
+    return out
+
+
+def read_images(paths: Sequence[Path], size: int, channels: int,
+                mean: float, std: float) -> np.ndarray:
+    """(N, size, size, channels) float32: each file decoded to 8 bits,
+    x / 255, then (x − mean) / std. Files must already be ``size``² (a
+    resize is the loader's business, and the reference has none)."""
+    from PIL import Image
+    out = np.empty((len(paths), size, size, channels), np.float32)
+    for j, path in enumerate(paths):
+        with Image.open(path) as im:
+            if im.size != (size, size):
+                raise ValueError(f"{path} is {im.size}, not {size}²")
+            arr = np.asarray(im.convert("RGB" if channels == 3 else "L"),
+                             np.float32) / 255.0
+        out[j] = arr[..., None] if arr.ndim == 2 else arr
+    return (out - mean) / std
+
+
+def read_arrays(paths: Sequence[Path], root, keys: Sequence[str]
+                ) -> Dict[str, np.ndarray]:
+    """{key: (N, ...) float32}: each key of ``keys`` from the npz
+    ``<root>/<image stem>.npz`` of every path, stacked in order."""
+    out: Dict[str, list] = {k: [] for k in keys}
+    for path in paths:
+        with np.load(Path(root) / (Path(path).stem + ".npz")) as npz:
+            for k in keys:
+                out[k].append(np.asarray(npz[k], np.float32))
+    return {k: np.stack(v) for k, v in out.items()}
 
 
 def schedule_at(values: dict, epoch: int) -> Tuple[int, int, int]:
@@ -201,10 +284,12 @@ class GANReference:
     then ``gen_freq`` G updates (``optimisation.disc_freq`` and
     ``optimisation.gen_freq`` where the values give them, else 1), each
     over ``accum`` micro-batches whose losses are averaged into one
-    gradient; z drawn per micro-batch; the extra state (a fade-in)
-    advanced after every micro-batch. A
-    configuration supplies ``D`` and ``G`` (modules whose parameter names
-    are the program's), ``disc_loss``, ``gen_loss``, ``sample_z``, the
+    gradient; each loss handed its micro-batch (the superstep batch's
+    leaves at one index of their leading axis) and z drawn by the rows of
+    its ``"image"``; the extra state (a fade-in) advanced after every
+    micro-batch. A configuration supplies ``D`` and ``G`` (modules whose
+    parameter names are the program's), ``disc_loss`` and ``gen_loss``
+    (each ``(micro-batch, z) -> (loss, {name: metric})``), ``sample_z``, the
     optimizers (``opt_d``, ``opt_g``) and their learning rates by update
     count (``lr_d``, ``lr_g``)."""
 
@@ -225,9 +310,10 @@ class GANReference:
     def update_extra(self):
         """After every micro-batch; nothing by default."""
 
-    def superstep(self, images: torch.Tensor, accum: int
+    def superstep(self, batch: dict, accum: int
                   ) -> Tuple[Dict[str, float], Dict[str, Dict[str, float]]]:
-        """One superstep on ``images`` (n_micro, B, C, S, S). Returns the
+        """One superstep on ``batch`` (``superstep_batch``'s: leaves of
+        leading shape (n_micro, B), images at ``"image"``). Returns the
         losses averaged over the micro-batches that emitted them, and the
         per-leaf norms of each net's gradient as its optimizer took it at
         that net's first update of the superstep."""
@@ -244,8 +330,8 @@ class GANReference:
                 for p in params:
                     p.grad = None
                 for _a in range(accum):
-                    micro = images[i]
-                    z = self.sample_z(micro.shape[0])
+                    micro = map_batch(lambda v: v[i], batch)
+                    z = self.sample_z(micro["image"].shape[0])
                     loss, metrics = loss_fn(micro, z)
                     (loss / accum).backward()
                     self.update_extra()
@@ -307,7 +393,7 @@ def count_flops(fn) -> float:
     return float(Count.total)
 
 
-def flops_of_superstep(ref: GANReference, images: torch.Tensor,
-                       accum: int) -> float:
-    """``count_flops`` of one superstep of ``ref``; its state steps."""
-    return count_flops(lambda: ref.superstep(images, accum))
+def flops_of_superstep(ref: GANReference, batch: dict, accum: int) -> float:
+    """``count_flops`` of one superstep of ``ref`` on ``batch``; its state
+    steps."""
+    return count_flops(lambda: ref.superstep(batch, accum))

@@ -6,6 +6,7 @@ import torch
 
 from perfbench import harness, spec
 from perfbench.reference import plain
+from perfbench.tests import tiny
 from perfbench.tests.tiny import tiny_cell
 
 SEED = 3_000_000_029
@@ -33,10 +34,29 @@ def test_reference_init_and_draws_are_the_programs(name):
     assert torch.equal(trainer.task.sample_z(3), ref.sample_z(3))
 
 
-def test_images_and_order_are_the_loaders(tmp_path):
-    """The reference's images are the loader's, stack by stack; the
-    synthetic dataset makes them in memory and never touches its
-    configured root (conf/dataset/synthetic.yaml names /tmp/synthetic)."""
+@pytest.mark.parametrize("name", CELLS)
+def test_images_and_order_are_the_loaders(name):
+    """The reference's superstep batch (its module's own, or the default)
+    is the one the program's Trainer hands the superstep, leaf by leaf, in
+    the first supersteps of epochs 0 and 1."""
+    c = harness.prepare(tiny_cell(name))
+    for epoch in (0, 1):
+        batch, accum, _ = plain.schedule_at(c["values"], epoch)
+        ref = spec.reference(c["config"]["name"]).Reference(c["values"],
+                                                            "cpu")
+        n_micro = (ref.disc_freq + ref.gen_freq) * accum
+        for k, want in enumerate(tiny.trainer_batches(c, SEED, epoch, 3)):
+            got = harness.superstep_batch(c, SEED, epoch, k, batch, n_micro,
+                                          "cpu")
+            tiny.assert_same_batch(got, want,
+                                   f"epoch {epoch} superstep {k}: ")
+
+
+def test_synthetic_images_and_order_are_the_loaders(tmp_path):
+    """The default batch's images are the synthetic dataset's through the
+    loader, stack by stack, under a normalisation that moves them; the
+    dataset makes them in memory and never touches its configured root
+    (conf/dataset/synthetic.yaml names /tmp/synthetic)."""
     from lightning_gan_zoo_tpu_torch.data.datasets import Synthetic
     from lightning_gan_zoo_tpu_torch.data.pipeline import EpochLoader
     values = dict(tiny_cell("pigan.train16")["values"], **{
@@ -47,9 +67,10 @@ def test_images_and_order_are_the_loaders(tmp_path):
     loader = EpochLoader(ds, 4, n_micro=2, seed=SEED)
     stacks = list(loader.epoch(1))
     for k in range(3):
-        got = plain.superstep_images(values, SEED, 1, k, 4, 2, "cpu")
+        got = plain.superstep_batch(values, SEED, 1, k, 4, 2, "cpu")
         want = torch.from_numpy(stacks[k]["image"]).permute(0, 1, 4, 2, 3)
-        assert torch.equal(got, want)
+        assert got.keys() == {"image"}
+        assert torch.equal(got["image"], want)
     assert not root.exists()
 
 
@@ -123,8 +144,8 @@ def test_superstep_count_is_linear_in_the_batch():
     values = c["values"]
     ref = spec.reference("pigan_small").Reference(values, "cpu")
     ref.init_from_seed(SEED)
-    imgs = plain.superstep_images(values, SEED, 0, 0, 4, 2, "cpu")
-    at4 = plain.flops_of_superstep(ref, imgs, 1)
+    one = plain.superstep_batch(values, SEED, 1, 0, 4, 2, "cpu")
+    at4 = plain.flops_of_superstep(ref, one, 1)
     assert harness.flops_per_superstep(c, SEED, 1, "cpu") == at4
 
 
