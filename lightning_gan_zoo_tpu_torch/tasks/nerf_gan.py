@@ -9,6 +9,12 @@ nerf_gan.py).
     stops their gradient); R1 runs D in the task's penalty scope (float32
     outside autocast at train.penalty_precision 32, the bf16 policy at 16),
     as the JAX package's discriminator twin does.
+  * Each loss renders eagerly, then hands its images and the fade-in α to
+    the discriminator's side: D(real), D(fake), the hinge and R1 for D's
+    loss, D(fake) for G's. That side draws nothing and holds no buffer, so
+    on a CUDA device it replays from CUDA graphs, one pair a phase and
+    shape (runtime/graphs.py; eager at tp > 1 and under fsdp, and on the
+    CPU).
   * LR decay: linear over 10k updates to lr/4 (D) and lr/5 (G), a function
     of each optimizer's update count.
   * The task owns explicit generators for the view, depth-jitter, fine
@@ -29,6 +35,7 @@ from ..config.registry import instantiate
 from ..nerf.cameras import convert_cam_pred
 from ..nerf.sampling import sample_full_xys, sample_images_at_xys
 from ..ops import losses as L
+from ..runtime.graphs import GraphedCalls
 from ..runtime.optim import pigan_decay_schedule
 from .base import GANTask
 
@@ -47,6 +54,9 @@ class PIGAN(GANTask):
          self.deform_generator) = (
             torch.Generator(self.device).manual_seed(seed + k)
             for k in (2, 3, 4, 5))
+        #: the discriminator's side of both losses, replayed where it may be
+        self.d_side = GraphedCalls("zoo.d_side", self.device,
+                                   fsdp=bool(cfg.get("fsdp", False)))
 
     def generators(self):
         return {**super().generators(), "view": self.view_generator,
@@ -113,25 +123,42 @@ class PIGAN(GANTask):
         return sample_images_at_xys(images.permute(0, 2, 3, 1).float(),
                                     rays).permute(0, 3, 1, 2)
 
-    def _d(self, x, extra):
-        return self.discriminator(x, extra["alpha"],
-                                  self.training_resolution)
+    def _d(self, d, x, alpha):
+        return d(x, alpha, self.training_resolution)
+
+    def _disc_side(self, d, real, fake, alpha):
+        """D's side of D's loss, with ``d`` the discriminator: (hinge +
+        R1, R1 detached)."""
+        divergence = L.hinge_d_loss(self._d(d, real, alpha),
+                                    self._d(d, fake, alpha))
+        with self.penalty_scope():
+            r1 = float(self.cfg.loss_weight.reg) * L.r1_penalty(
+                lambda x: self._d(d, x, alpha), real)
+        return r1 + divergence, r1.detach()
+
+    def _gen_side(self, d, fake, alpha):
+        """D's side of G's loss: (mean D(fake),)."""
+        return (L.pigan_g_loss(self._d(d, fake, alpha)),)
+
+    def _g_divergence(self, fake, extra):
+        """G's divergence on NCHW RGB fakes: mean D(fake)."""
+        (loss,) = self.d_side(self._gen_side, ("g", self.training_resolution),
+                              self.discriminator, fake, extra["alpha"])
+        return loss
 
     def disc_loss(self, batch, z, extra):
         real = self.sample_real(batch["image"])
         with torch.no_grad():
             fake = self.render_fake(z, batch)[..., :3].permute(0, 3, 1, 2)
-        divergence = L.hinge_d_loss(self._d(real, extra),
-                                    self._d(fake, extra))
-        with self.penalty_scope():
-            r1 = float(self.cfg.loss_weight.reg) * L.r1_penalty(
-                lambda x: self._d(x, extra), real)
-        loss = r1 + divergence
-        return loss, {"d_loss": loss.detach(), "r1": r1.detach()}
+        loss, r1 = self.d_side(
+            self._disc_side,
+            ("d", self.training_resolution, self.penalty_precision),
+            self.discriminator, real, fake, extra["alpha"])
+        return loss, {"d_loss": loss.detach(), "r1": r1}
 
     def gen_loss(self, batch, z, extra):
         fake = self.render_fake(z, batch)[..., :3].permute(0, 3, 1, 2)
-        loss = L.pigan_g_loss(self._d(fake, extra))
+        loss = self._g_divergence(fake, extra)
         return loss, {"g_loss": loss.detach()}
 
     # -- sampling ---------------------------------------------------------------
@@ -190,8 +217,7 @@ class ANIGAN(PIGAN):
 
     def gen_loss(self, batch, z, extra):
         fake = self.render_fake(z, batch)
-        loss = L.pigan_g_loss(self._d(fake[..., :3].permute(0, 3, 1, 2),
-                                      extra))
+        loss = self._g_divergence(fake[..., :3].permute(0, 3, 1, 2), extra)
         rays = sample_full_xys(fake.shape[0], self.training_resolution,
                                device=fake.device)
         mask = batch["shape_analysis"]["mask_pred"][..., None].float()

@@ -19,6 +19,10 @@ lightning_gan_zoo_tpu/utils/profiling.py), on ``torch.profiler``.
       ``zoo.d.update``     after a phase's micro-steps: the gradient
       ``zoo.g.update``     reduction, the zero fill, the optimizer step,
                            the shard gather and (G) the EMA
+      ``zoo.d_side.replay``  π-GAN's and ANIGAN's discriminator side of a
+      ``zoo.d_side.eager``   loss (tasks/nerf_gan.py), inside the phase's
+                             forward span: replayed from CUDA graphs, or
+                             run eagerly (runtime/graphs.py)
       ``zoo.loader_wait``  the Trainer blocked on the loader's next stack
       ``zoo.to_device``    the Trainer's copy of one stack to the device
 

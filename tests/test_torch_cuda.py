@@ -4,10 +4,14 @@ a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from lightning_gan_zoo_tpu_torch.config import compose
+from lightning_gan_zoo_tpu_torch.config.registry import instantiate
 from lightning_gan_zoo_tpu_torch.models import hologan
 from lightning_gan_zoo_tpu_torch.models.layers import BatchNorm2d
 from lightning_gan_zoo_tpu_torch.nerf.siren import SirenNet
@@ -15,9 +19,13 @@ from lightning_gan_zoo_tpu_torch.ops import grid_sample
 from lightning_gan_zoo_tpu_torch.ops import siren_trunk as pt
 from lightning_gan_zoo_tpu_torch.ops.cuda import siren_trunk as st
 from lightning_gan_zoo_tpu_torch.ops.cuda import trilinear as kt
+from lightning_gan_zoo_tpu_torch.runtime import steps
 from lightning_gan_zoo_tpu_torch.runtime.optim import RMSprop
+from lightning_gan_zoo_tpu_torch.runtime.state import create_train_state
 
 pytestmark = pytest.mark.cuda
+
+CONF_DIR = Path(__file__).resolve().parents[1] / "conf"
 
 VIEW_ARGS = dict(elevation_low=70, elevation_high=110, azimuth_low=220,
                  azimuth_high=320, scale_low=1, scale_high=1,
@@ -349,3 +357,100 @@ def test_rmsprop_on_the_card_matches_the_cpu(gen, momentum):
             opt.step()
         out.append(p.detach().cpu())
     torch.testing.assert_close(out[0], out[1], rtol=1e-6, atol=1e-6)
+
+
+#: π-GAN at small widths under bf16: D's casts go through autocast's cache
+D_SIDE_PIGAN = ["+expt=pigan", "machine=local", "dataset=synthetic",
+                "calc_fid=False", "~figures", "save_ckpts=False",
+                "model.noise_dim=16", "nerf.siren_dim_hidden=32",
+                "nerf.siren_num_layers=2", "nerf.n_pts_per_ray=4",
+                "nerf.n_pts_per_ray_fine=4", "train.features_disc=8",
+                "train.img_size=32",
+                "resolution_annealing.resolutions=[8,16,32]",
+                "variable_batch_size.batch_sizes=[4,2,2]", "precision=16"]
+
+
+def _d_side_run(tmp_path, monkeypatch, replay, grows, penalty_precision):
+    """Four supersteps (D then G, two micro-batches each, Adam between
+    them) from the seed's weights: every loss, every gradient the
+    optimizers take, G's loss gradient at D's input, the parameters and
+    the random streams after, and the graphs captured. With ``grows`` the
+    last two supersteps run at 16 px on batches of 2."""
+    cfg = compose(CONF_DIR, D_SIDE_PIGAN + [
+        f"train.penalty_precision={penalty_precision}"])
+    task = instantiate(cfg.model.lm, cfg, str(tmp_path), device="cuda")
+    if not replay:
+        task.d_side.replayable = lambda: False
+    state = create_train_state(task, steps_per_epoch=4)
+    grads, through = [], []
+    step = steps.optimizer_step
+
+    def recorded_step(opt, sched, count):
+        grads.append([p.grad.clone() for group in opt.param_groups
+                      for p in group["params"]])
+        step(opt, sched, count)
+
+    divergence = task._g_divergence
+
+    def recorded_divergence(fake, extra):
+        fake.register_hook(lambda g: through.append(g.clone()))
+        return divergence(fake, extra)
+
+    task._g_divergence = recorded_divergence
+    images = torch.rand(4, 4, 3, 32, 32,
+                        generator=torch.Generator().manual_seed(3)) * 2 - 1
+    losses = []
+    with monkeypatch.context() as patch:
+        patch.setattr(steps, "optimizer_step", recorded_step)
+        for k in range(4):
+            batch = images.cuda()
+            if grows and k >= 2:
+                if k == 2:
+                    task.increase_resolution(16)
+                    state.extra = task.reset_alpha(state.extra)
+                batch = batch[:, :2]
+            metrics = steps.superstep(task, state, {"image": batch}, 1, 1, 2)
+            losses.append({k: v.clone() for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for net in (task.generator,
+                                             task.discriminator)
+              for p in net.parameters()]
+    return {"losses": losses, "grads": grads, "through": through,
+            "params": params,
+            "streams": [g.get_state() for g in task.generators().values()]
+            + [torch.cuda.get_rng_state()],
+            "graphs": len(task.d_side.graphs)}
+
+
+@pytest.mark.parametrize("grows,penalty_precision", [(False, 32),
+                                                     (True, 16)])
+def test_pigan_d_side_replay_equals_eager_bit_for_bit(
+        gen, tmp_path, monkeypatch, grows, penalty_precision):
+    """π-GAN's discriminator side replayed from CUDA graphs against the
+    eager calls, under deterministic algorithms: every loss, every D and
+    G gradient at the optimizers, G's loss gradient at D's input, the
+    parameters and every random stream bit-identical over four supersteps
+    of two micro-batches. The weights move between replays, so a stale
+    bf16 cast would show, and the micro-batches' metrics and gradients
+    add up, so an output or gradient left in a graph's buffer would. A new
+    resolution and batch capture a new pair of graphs."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = [_d_side_run(tmp_path, monkeypatch, replay, grows,
+                            penalty_precision) for replay in (False, True)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    eager, replayed = runs
+    assert eager["graphs"] == 0
+    assert replayed["graphs"] == (4 if grows else 2)
+    for a, b in zip(eager["losses"], replayed["losses"]):
+        assert a.keys() == b.keys() == {"d_loss", "r1", "g_loss"}
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert len(eager["grads"]) == len(replayed["grads"]) == 8
+    for a, b in zip(eager["grads"], replayed["grads"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert len(eager["through"]) == len(replayed["through"]) == 8
+    for key in ("through", "params", "streams"):
+        assert all(torch.equal(x, y)
+                   for x, y in zip(eager[key], replayed[key])), key

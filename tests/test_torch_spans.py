@@ -2,7 +2,8 @@
 widths: one superstep under a profiler started and stopped around the call,
 as the benchmark's traced stretch drives it, holds one ``zoo.superstep`` and,
 nested in it, each phase's forward and backward per micro-step and update
-per optimizer step, and ends with the losses and parameters bit for bit
+per optimizer step (π-GAN: in each forward, the discriminator side's eager
+span), and ends with the losses and parameters bit for bit
 where a run with no profiler ends; with no profiler no span enters
 ``record_function``."""
 import pytest
@@ -84,9 +85,15 @@ def test_superstep_spans_nest_and_count(tmp_path, name):
         want.update({f"zoo.{net}.forward": f * accum,
                      f"zoo.{net}.backward": f * accum,
                      f"zoo.{net}.update": f})
+    if name == "pigan":
+        # the discriminator's side of each loss, eager on the CPU
+        want["zoo.d_side.eager"] = sum(freq.values()) * accum
     assert count == want
     for e in spans:
-        if e.name != "zoo.superstep":
+        if e.name.startswith("zoo.d_side."):
+            assert _ancestors(e)[:2] in (["zoo.d.forward", "zoo.superstep"],
+                                         ["zoo.g.forward", "zoo.superstep"])
+        elif e.name != "zoo.superstep":
             assert _ancestors(e)[-1] == "zoo.superstep", e.name
             assert not any(a.startswith("zoo.") for a in _ancestors(e)[:-1])
     # the optimizer's own range opens inside the update span
